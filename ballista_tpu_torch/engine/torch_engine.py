@@ -19,6 +19,7 @@ multi-device exchanges are not ported yet.
 from __future__ import annotations
 
 import time
+from dataclasses import replace
 from typing import Optional
 
 import torch
@@ -270,8 +271,10 @@ def _trace_node(plan: P.PhysicalPlan, env: dict):
 
 
 def _trace_agg(plan: P.HashAggregateExec, env: dict):
-    from dataclasses import replace
-
+    """An aggregate in two phases: every aggregate's arguments are evaluated
+    (and ``presum_safe`` run) in plan order while its sums and counts are
+    registered with one ``SegSums``, which computes them all at once; then
+    each aggregate builds its output columns from the results."""
     db = _trace_node(plan.input, env)
     out_schema = plan.schema()
     key_cols = [KT.eval_dev(g, db) for g in plan.group_exprs]
@@ -288,14 +291,17 @@ def _trace_agg(plan: P.HashAggregateExec, env: dict):
         per_key = info
         ids, k = KT.group_ids_direct(db, key_cols, per_key)
 
-    seen = KT.seg_count(ids, k, db.row_valid, None) > 0
+    sums = KT.SegSums(ids, k, db.row_valid)
+    seen_at = sums.count(None)
+    builds = [_trace_agg_cols(plan.mode, unalias(e), e.name(), db, sums)
+              for e in plan.agg_exprs]
+    res = sums.compute()
+
     out_cols: list = []
     if key_cols:
         out_cols.extend(KT.decode_group_keys(key_cols, per_key, k))
-
-    for e in plan.agg_exprs:
-        a = unalias(e)
-        out_cols.extend(_trace_agg_cols(plan.mode, a, e.name(), db, ids, k))
+    for build in builds:
+        out_cols.extend(build(res))
 
     pad = KT.bucket_size(k)
     padded = [
@@ -307,16 +313,17 @@ def _trace_agg(plan: P.HashAggregateExec, env: dict):
         for c in out_cols
     ]
     if key_cols:
-        row_valid = _pad_dev(seen, pad)
+        row_valid = _pad_dev(res[seen_at] > 0, pad)
     else:
         # a global aggregate over zero rows still emits its single row (SQL)
         row_valid = torch.arange(pad, device=db.device) < 1
     return KT.DeviceBatch(out_schema, padded, row_valid, k)
 
 
-def _trace_agg_cols(mode, a: Agg, name, db, ids, k):
-    from dataclasses import replace
-
+def _trace_agg_cols(mode, a: Agg, name, db, sums):
+    """Phase one of one aggregate: evaluates its argument, registers its
+    sums and counts with ``sums``, and returns ``build(res)``, which makes
+    its output columns from ``sums.compute()``'s results."""
     rv = db.row_valid
 
     def arg_col():
@@ -325,16 +332,22 @@ def _trace_agg_cols(mode, a: Agg, name, db, ids, k):
             raise _HostFallback()
         return c
 
-    def seg_sum_col(c, label, null_mark=None):
+    def seg_sum_col(c):
         """Segment sum preserving the scaled-int64 representation: scaled
         inputs sum EXACTLY in int64 (presum_safe proves headroom or falls
         back), unscaled inputs keep their own width. The output inherits the
-        subset-sum bound, so re-summing states stays provably safe."""
+        subset-sum bound, so re-summing states stays provably safe. Returns
+        ``make(res, label, null_mark)`` for the column."""
         cc = KT.presum_safe(c, db.n_pad)
-        s = KT.seg_sum(cc.data, ids, k, rv, cc.null)
+        at = sums.sum(cc.data, cc.null)
+        rng = KT.sum_range(cc, db.n_pad)
         bound = KT._sum_bound(cc, db.n_pad) if cc.scale is not None else None
-        return KT.DeviceCol(label, s, null_mark, range=KT.sum_range(cc, db.n_pad),
-                            scale=cc.scale, ssum=bound)
+
+        def make(res, label, null_mark=None):
+            return KT.DeviceCol(label, res[at], null_mark, range=rng, scale=cc.scale,
+                                ssum=bound)
+
+        return make
 
     def avg_div(scol, cnt, null_mark):
         """Final AVG division: scaled sums divide EXACTLY in int64 and stay a
@@ -349,55 +362,62 @@ def _trace_agg_cols(mode, a: Agg, name, db, ids, k):
                                 range=rng, scale=out_scale)
         return KT.DeviceCol(DataType.FLOAT64, scol.data / torch.clamp(cnt, min=1), null_mark)
 
+    def sum_of(c):
+        cnt = sums.count(c.null)
+        s = seg_sum_col(c)
+        dtype = _sum_dtype(c.dtype)
+        return lambda res: [s(res, dtype, res[cnt] == 0)]
+
+    def min_max_of(c):
+        m = KT.seg_min(c.data, sums.ids, sums.k, rv, c.null, a.fn == "min")
+        cnt = sums.count(c.null)
+        return lambda res: [KT.DeviceCol(_sum_dtype(c.dtype), m, res[cnt] == 0,
+                                         range=c.range, scale=c.scale)]
+
     if mode in ("single", "partial"):
         if a.fn == "count_star":
-            return [KT.DeviceCol(DataType.INT64, KT.seg_count(ids, k, rv, None))]
+            cnt = sums.count(None)
+            return lambda res: [KT.DeviceCol(DataType.INT64, res[cnt])]
         if a.fn == "count":
-            c = KT.eval_dev(a.expr, db)
-            return [KT.DeviceCol(DataType.INT64, KT.seg_count(ids, k, rv, c.null))]
+            cnt = sums.count(KT.eval_dev(a.expr, db).null)
+            return lambda res: [KT.DeviceCol(DataType.INT64, res[cnt])]
         c = arg_col()
         if a.fn == "sum":
-            cnt = KT.seg_count(ids, k, rv, c.null)
-            return [replace(seg_sum_col(c, _sum_dtype(c.dtype)), null=cnt == 0)]
+            return sum_of(c)
         if a.fn == "avg":
-            cnt = KT.seg_count(ids, k, rv, c.null)
+            cnt = sums.count(c.null)
             if c.scale is None and not c.dtype.is_floating:
                 # int argument: exact scale-0 sums under the native policy,
                 # f64 sums otherwise
                 sc = KT.as_scaled(c) if KT.NATIVE_DTYPES else None
                 c = sc if sc is not None else replace(c, data=c.data.to(torch.float64))
-            s = seg_sum_col(c, DataType.FLOAT64)
+            s = seg_sum_col(c)
             if mode == "partial":
-                return [s, KT.DeviceCol(DataType.INT64, cnt)]
-            return [avg_div(s, cnt, cnt == 0)]
+                return lambda res: [s(res, DataType.FLOAT64),
+                                    KT.DeviceCol(DataType.INT64, res[cnt])]
+            return lambda res: [avg_div(s(res, DataType.FLOAT64), res[cnt], res[cnt] == 0)]
         if a.fn in ("min", "max"):
-            m = KT.seg_min(c.data, ids, k, rv, c.null, a.fn == "min")
-            cnt = KT.seg_count(ids, k, rv, c.null)
-            return [KT.DeviceCol(_sum_dtype(c.dtype), m, cnt == 0,
-                                 range=c.range, scale=c.scale)]
+            return min_max_of(c)
         raise ExecutionError(a.fn)
 
     # final: merge partial states located by name
     if a.fn in ("count", "count_star"):
         st = db.col(f"{name}#count")
-        return [KT.DeviceCol(DataType.INT64, KT.seg_sum(st.data, ids, k, rv, st.null))]
+        at = sums.sum(st.data, st.null)
+        return lambda res: [KT.DeviceCol(DataType.INT64, res[at])]
     if a.fn == "avg":
         s = db.col(f"{name}#sum")
         cn = db.col(f"{name}#count")
-        ssum = seg_sum_col(s, DataType.FLOAT64)
-        scnt = KT.seg_sum(cn.data, ids, k, rv, cn.null)
-        return [avg_div(ssum, scnt, scnt == 0)]
+        ssum = seg_sum_col(s)
+        scnt = sums.sum(cn.data, cn.null)
+        return lambda res: [avg_div(ssum(res, DataType.FLOAT64), res[scnt], res[scnt] == 0)]
     st = db.col(f"{name}#{a.fn}")
     if st.is_string:
         raise _HostFallback()
     if a.fn == "sum":
-        cnt = KT.seg_count(ids, k, rv, st.null)
-        return [replace(seg_sum_col(st, _sum_dtype(st.dtype)), null=cnt == 0)]
+        return sum_of(st)
     if a.fn in ("min", "max"):
-        m = KT.seg_min(st.data, ids, k, rv, st.null, a.fn == "min")
-        cnt = KT.seg_count(ids, k, rv, st.null)
-        return [KT.DeviceCol(_sum_dtype(st.dtype), m, cnt == 0,
-                             range=st.range, scale=st.scale)]
+        return min_max_of(st)
     raise ExecutionError(a.fn)
 
 

@@ -10,6 +10,8 @@ Correctness is asserted against a pandas oracle over the same generated data.
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 import zlib
 
 import numpy as np
@@ -454,8 +456,16 @@ def generate_tpch(
     Returns {table_name: directory}. Small tables are written as a single file;
     large ones into ``parts_per_table`` row-chunked files so scans parallelize
     (reference: one partition per file, tuning-guide.md).
+
+    Each table is written into a private directory beside its target and
+    renamed into place whole, so a table directory that exists is complete:
+    processes that generate into one ``data_dir`` at once never read a file
+    another is still writing, and a run killed midway leaves only a hidden
+    ``.<table>.tmp-*`` directory that no later run adopts. When another
+    process's rename wins, this one drops its copy and uses the winner's.
     """
     out: dict[str, str] = {}
+    os.makedirs(data_dir, exist_ok=True)
     for name in tables or TPCH_TABLES:
         tdir = os.path.join(data_dir, name)
         if os.path.isdir(tdir) and os.listdir(tdir):
@@ -470,13 +480,21 @@ def generate_tpch(
                 )
             out[name] = tdir
             continue
-        os.makedirs(tdir, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix=f".{name}.tmp-", dir=data_dir)
         table = generate_table(name, sf, seed)
         nparts = 1 if name in ("region", "nation", "supplier") else parts_per_table
         rows = table.num_rows
         step = (rows + nparts - 1) // nparts if rows else 1
         for i in range(nparts):
             chunk = table.slice(i * step, step)
-            pq.write_table(chunk, os.path.join(tdir, f"part-{i}.parquet"))
+            pq.write_table(chunk, os.path.join(tmp, f"part-{i}.parquet"))
+        os.chmod(tmp, 0o755)  # mkdtemp's 0700 would hide the table from other users
+        try:
+            # replaces a missing or empty directory; fails on a full one
+            os.rename(tmp, tdir)
+        except OSError:
+            shutil.rmtree(tmp, ignore_errors=True)
+            if not (os.path.isdir(tdir) and os.listdir(tdir)):
+                raise
         out[name] = tdir
     return out

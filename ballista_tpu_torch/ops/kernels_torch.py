@@ -18,7 +18,9 @@ Execution model:
   splitmix64 hash, which comes with the join slice: such plans raise
   ``DeviceUnsupported`` and run on the host kernels;
 * segment sums and counts over at most ``MASKED_SEG_K`` groups go through the
-  hand-written CUDA kernel ``grouped_sums`` (``ops/grouped_sums.py``).
+  hand-written CUDA kernel ``grouped_sums`` (``ops/grouped_sums.py``): an
+  aggregate stage gathers them in ``SegSums`` and makes one multi-column
+  call per accumulator type.
 
 PyTorch runs eagerly, so every function here dispatches its ops as it goes;
 the only host syncs are the ones ``to_host`` needs to size its fetch.
@@ -1624,31 +1626,80 @@ def _mask(row_valid, null):
     return row_valid if null is None else (row_valid & ~null)
 
 
-def seg_sum(vals, ids, k, row_valid, null):
-    from ballista_tpu_torch.ops.grouped_sums import grouped_sums
+class SegSums:
+    """The segment sums and counts of one aggregate stage, registered while
+    its aggregates are traced and computed together by ``compute``.
 
-    mask = _mask(row_valid, null)
-    v = torch.where(mask, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
-    if k == 0:
-        return v.new_zeros((0,))
-    if 0 < k <= MASKED_SEG_K and v.dtype != torch.float64:
-        # floats accumulate in f32 and ints in int64, the kernel's types;
-        # the result keeps the input's width, as the JAX package's does
-        acc = v if v.dtype in (torch.float32, torch.int64) else v.to(torch.int64)
-        return grouped_sums(acc, ids, mask, k).to(v.dtype)
-    return torch.zeros(k + 1, dtype=v.dtype, device=v.device).index_add_(0, ids, v)[:k]
+    At ``0 < k <= MASKED_SEG_K`` that is one ``grouped_sums_multi`` call per
+    accumulator type present (int64 for int sums and counts, float32 for f32
+    sums): ids are read once per launch and each distinct mask once — the
+    eager counterpart of what one ``jit`` trace gives the JAX engine. A call
+    is one launch unless the stage has more columns than one launch takes;
+    the wrapper then splits it (``grouped_sums.column_chunks``). Counts over
+    the same mask (the same ``null`` tensor, or none) are one column. float64
+    sums, and every sum at other k, go through ``index_add_`` one by one.
+    Floats accumulate in f32 and ints in int64, the kernel's types; each
+    result keeps its input's width, as the JAX package's does."""
 
+    def __init__(self, ids, k, row_valid):
+        self.ids, self.k, self.row_valid = ids, k, row_valid
+        self._masks: dict = {}   # id(null) -> (null, mask); keeps null alive
+        self._cols: list = []    # (vals or None for a count, mask)
+        self._counts: dict = {}  # id(null) -> column of its count
 
-def seg_count(ids, k, row_valid, null):
-    from ballista_tpu_torch.ops.grouped_sums import grouped_sums
+    def _mask(self, null):
+        key = id(null)
+        if key not in self._masks:
+            self._masks[key] = (null, _mask(self.row_valid, null).contiguous())
+        return self._masks[key][1]
 
-    mask = _mask(row_valid, null)
-    m = mask.to(torch.int64)
-    if k == 0:
-        return m.new_zeros((0,))
-    if 0 < k <= MASKED_SEG_K:
-        return grouped_sums(m, ids, mask, k)
-    return torch.zeros(k + 1, dtype=torch.int64, device=m.device).index_add_(0, ids, m)[:k]
+    def sum(self, vals, null) -> int:
+        """Registers the sum of ``vals`` over the valid, non-null rows;
+        returns its index in ``compute``'s list."""
+        self._cols.append((vals, self._mask(null)))
+        return len(self._cols) - 1
+
+    def count(self, null) -> int:
+        """Registers the count of the valid, non-null rows (shared by every
+        count over the same ``null``); returns its index."""
+        key = id(null)
+        if key not in self._counts:
+            self._cols.append((None, self._mask(null)))
+            self._counts[key] = len(self._cols) - 1
+        return self._counts[key]
+
+    def compute(self) -> list:
+        """The registered sums and counts, in registration order."""
+        from ballista_tpu_torch.ops import grouped_sums as GS
+
+        ids, k = self.ids, self.k
+        out: list = [None] * len(self._cols)
+        batches: dict = {}  # accumulator dtype -> [column index]
+        for i, (v, mask) in enumerate(self._cols):
+            if k == 0:
+                dt = torch.int64 if v is None else v.dtype
+                out[i] = torch.zeros(0, dtype=dt, device=ids.device)
+            elif k <= MASKED_SEG_K and (v is None or v.dtype != torch.float64):
+                acc = torch.int64 if v is None or v.dtype != torch.float32 else torch.float32
+                batches.setdefault(acc, []).append(i)
+            elif v is None:
+                m = mask.to(torch.int64)
+                out[i] = torch.zeros(k + 1, dtype=torch.int64, device=m.device) \
+                    .index_add_(0, ids, m)[:k]
+            else:
+                vm = torch.where(mask, v, torch.zeros((), dtype=v.dtype, device=v.device))
+                out[i] = torch.zeros(k + 1, dtype=v.dtype, device=v.device) \
+                    .index_add_(0, ids, vm)[:k]
+        for acc, idx in batches.items():
+            # no-ops for the engine's own (contiguous) columns
+            vals = [None if self._cols[i][0] is None
+                    else self._cols[i][0].to(acc).contiguous() for i in idx]
+            masks = [self._cols[i][1] for i in idx]
+            res = GS.grouped_sums_multi(vals, masks, ids.contiguous(), k)
+            for row, i in enumerate(idx):
+                v = self._cols[i][0]
+                out[i] = res[row] if v is None else res[row].to(v.dtype)
+        return out
 
 
 def seg_min(vals, ids, k, row_valid, null, is_min=True):

@@ -9,7 +9,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
 2. build   — every hand-written kernel (``ballista_tpu_torch/csrc/*.cu``)
              compiles with nvcc for sm_90a, all at once.
 3. kernels — each kernel's wrapper on card tensors against its plain PyTorch
-             version: int64 results exact, float32 within rtol 1e-5.
+             version: int64 results exact, float32 within rtol 1e-5 and
+             bitwise equal run to run; grouped_sums at one column and at
+             several (q1's stage shape, mixed masks, f32, no rows, views
+             off a 16-byte boundary).
 4. slice   — TPC-H SF1 lineitem (6,001,215 rows, 4 parquet parts, generated
              from a seed by the port's own ``models/tpch.py``); q1 and q6
              through ``BallistaContext.standalone()`` on ``cuda``, cold then
@@ -19,12 +22,19 @@ Phases, each of which passes or ends the run with a non-zero exit:
              engine, ``backend="numpy"`` (floats within 1e-6 relative: it
              sums decimals in f64). Each query's launch count is zeroed
              just before its run and read just after; every kernel must
-             have launched in each query's warm run and no operator may
-             have fallen back to the host.
-5. timing  — each kernel at the largest shape the slice gave it (L2 flushed
-             before every launch, CUDA events), beside its plain version,
-             one PyTorch library call computing the same function, and the
-             least time the card could take (bytes over 3.35 TB/s).
+             have launched in each query's warm run (grouped_sums once per
+             aggregate stage) and no operator may have fallen back to the
+             host. The (n, k, columns) shapes the stages gave grouped_sums
+             are recorded and the kernel checked at each.
+5. timing  — grouped_sums at one column (2^21 rows, k = 12, int64), at
+             the largest and smallest stages of q1's warm run, and at a
+             stage of 16 int64 columns at k = 32, which the wrapper splits
+             into launches (L2 flushed before every call, CUDA events,
+             device time only), beside
+             its plain version, one PyTorch library call computing the same
+             function, a torch sum over the same bytes, the least time the
+             card could take (bytes over 3.35 TB/s), and the time of one
+             one-element add_ (the least any launch takes here).
 
 It prints the kernels line and the nvidia-smi line before its last line, and
 ends with one JSON object naming the device. It imports nothing of JAX and
@@ -48,7 +58,6 @@ LINEITEM_PARTS = 4
 QUERIES = ("q1", "q6")
 # H100 SXM, NVIDIA's data sheet: HBM3 rate at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
-L2_FLUSH_BYTES = 256 * 1024 * 1024  # 5x the 50 MB L2
 
 
 def phase(name: str) -> None:
@@ -101,6 +110,78 @@ def check_grouped_sums(n: int, k: int, seed: int, device) -> float:
             raise AssertionError(f"grouped_sums n={n} k={k} {label}: {got} vs {want}")
         worst = max(worst, float((got.double() - want.double()).abs().max()))
         print(f"grouped_sums n={n} k={k} {label}: ok (max_abs_err {worst:g})", flush=True)
+    return worst
+
+
+def stage_inputs(n: int, k: int, ncols: int, seed: int, device, offset: int = 0,
+                 dtype: torch.dtype = torch.int64):
+    """An aggregate stage's columns as q1's partial stage has them: ncols - 1
+    int64 sums and one count (or ncols float32 sums), all over one mask;
+    each array a view that starts ``offset`` rows into its storage."""
+    rng = np.random.default_rng(seed)
+    m = n + offset
+    ids, valid, _, _ = grouped_sums_inputs(m, k, seed, "cpu")
+    to = lambda t: t.to(device)[offset:]  # noqa: E731
+    if dtype == torch.float32:
+        vals = [to(torch.from_numpy(rng.random(m).astype(np.float32))) for _ in range(ncols)]
+    else:
+        vals = [to(torch.from_numpy(rng.integers(-(10**12), 10**12, m).astype(np.int64)))
+                for _ in range(ncols - 1)] + [None]
+    return to(ids), vals, to(valid)
+
+
+def check_multi(label: str, vals, masks, ids, k: int) -> float:
+    """One multi-column call against its plain version (int64 exact; f32
+    within rtol 1e-5 and bitwise equal on a second call); returns the
+    largest absolute difference."""
+    from ballista_tpu_torch.ops.grouped_sums import grouped_sums_multi, grouped_sums_multi_ref
+
+    got = grouped_sums_multi(vals, masks, ids, k)
+    want = grouped_sums_multi_ref(vals, masks, ids, k)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"grouped_sums_multi {label}: {got.dtype}{tuple(got.shape)}")
+    if got.dtype == torch.float32:
+        if not torch.allclose(got, want, rtol=1e-5):
+            raise AssertionError(f"grouped_sums_multi {label}: {got} vs {want}")
+        if not torch.equal(got, grouped_sums_multi(vals, masks, ids, k)):
+            raise AssertionError(f"grouped_sums_multi {label}: f32 sums differ run to run")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"grouped_sums_multi {label}: {got} vs {want}")
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    print(f"grouped_sums_multi {label}: ok (max_abs_err {err:g})", flush=True)
+    return err
+
+
+def check_multi_shapes(device) -> float:
+    """The multi-column kernel at q1's stage shape and the cases around it:
+    mixed masks, int64 sums with counts, f32 twice, no rows, unaligned
+    views, and calls wider than one launch takes (the wrapper splits them)."""
+    worst = 0.0
+    n, k = 1 << 21, 12
+    ids, vals, valid = stage_inputs(n, k, 8, 21, device)
+    worst = max(worst, check_multi(f"n={n} k={k} C=8 (7 int64 + count, one mask)",
+                                   vals, [valid] * 8, ids, k))
+    rng = np.random.default_rng(22)
+    other = [torch.from_numpy(rng.random(n) < p).to(device) for p in (0.5, 0.95)]
+    masks = [valid, other[0], valid, other[1], other[0], valid, other[1], other[0]]
+    worst = max(worst, check_multi(f"n={n} k={k} C=8 mixed masks", vals, masks, ids, k))
+    f = [torch.from_numpy(rng.random(n).astype(np.float32)).to(device) for _ in range(4)]
+    worst = max(worst, check_multi(f"n={n} k={k} C=4 f32", f, masks[:4], ids, k))
+    for wk, ncols, dtype in ((32, 40, torch.int64), (32, 20, torch.float32),
+                             (12, 33, torch.int64)):
+        w_ids, w_vals, _ = stage_inputs(n, wk, ncols, 30 + ncols, device, dtype=dtype)
+        w_masks = [(valid, other[0], other[1])[c * 3 // ncols] for c in range(ncols)]
+        worst = max(worst, check_multi(f"n={n} k={wk} C={ncols} {dtype} three masks",
+                                       w_vals, w_masks, w_ids, wk))
+    e_ids, e_vals, e_valid = stage_inputs(0, 5, 3, 23, device)
+    worst = max(worst, check_multi("n=0 k=5 C=3", e_vals, [e_valid] * 3, e_ids, 5))
+    for off in (1, 3):
+        u_ids, u_vals, u_valid = stage_inputs(100_003, 7, 4, 24 + off, device,
+                                                  offset=off)
+        worst = max(worst, check_multi(f"n=100003 k=7 C=4 view at row {off}",
+                                       u_vals, [u_valid] * 4, u_ids, 7))
     return worst
 
 
@@ -227,26 +308,28 @@ def check_result(got, host, exact: dict, qname: str, presums: list) -> None:
 
 def run_counted(ctx, sql: str) -> dict:
     """One collect, with grouped_sums' launch count set to 0 just before
-    it and read just after. Also records the shapes grouped_sums was given
-    and each presum_safe call's (scale in, scale out)."""
+    it and read just after. Also records the shapes (n, k, columns, dtype)
+    grouped_sums was given and each presum_safe call's (scale in, scale
+    out)."""
     import ballista_tpu_torch.ops.grouped_sums as GS
     import ballista_tpu_torch.ops.kernels_torch as KT
 
     shapes: dict = {}
     presums: list = []
-    real_gs, real_ps = GS.grouped_sums, KT.presum_safe
+    real_gs, real_ps = GS.grouped_sums_multi, KT.presum_safe
 
-    def gs(vals, ids, valid, k):
-        key = (int(vals.shape[0]), int(k), vals.dtype)
+    def gs(vals, masks, ids, k):
+        dtype = next((v.dtype for v in vals if v is not None), torch.int64)
+        key = (int(ids.shape[0]), int(k), len(vals), dtype)
         shapes[key] = shapes.get(key, 0) + 1
-        return real_gs(vals, ids, valid, k)
+        return real_gs(vals, masks, ids, k)
 
     def ps(c, n_pad):
         out = real_ps(c, n_pad)
         presums.append((c.scale, out.scale))
         return out
 
-    GS.grouped_sums, KT.presum_safe = gs, ps
+    GS.grouped_sums_multi, KT.presum_safe = gs, ps
     try:
         GS.launches = 0
         t0 = time.time()
@@ -254,7 +337,7 @@ def run_counted(ctx, sql: str) -> dict:
         wall = time.time() - t0
         launches = GS.launches
     finally:
-        GS.grouped_sums, KT.presum_safe = real_gs, real_ps
+        GS.grouped_sums_multi, KT.presum_safe = real_gs, real_ps
     return {"table": got, "wall": wall, "launches": launches, "shapes": shapes,
             "presums": presums, "metrics": dict(ctx.last_engine_metrics)}
 
@@ -291,6 +374,9 @@ def run_slice(device: str, lineitem: str, runs=("cold", "warm"), profile: bool =
                 raise AssertionError(f"{q}: device stages {m.get('op.DeviceExecute.count')}")
             if r["launches"] <= 0:
                 raise AssertionError(f"{q} {run}: grouped_sums never launched")
+            if r["launches"] != m["op.DeviceExecute.count"]:
+                raise AssertionError(f"{q} {run}: {r['launches']} grouped_sums launches in "
+                                     f"{m['op.DeviceExecute.count']:g} aggregate stages")
             out[(q, run)] = r
     prof = {q: profile_run(ctx, want[q][0]) for q in QUERIES} if profile else {}
     return out, prof
@@ -315,48 +401,50 @@ def profile_run(ctx, sql: str) -> dict:
 
 
 # ---- 5. timing ---------------------------------------------------------------------
-def time_cuda(fn, reps: int = 20) -> float:
-    """Median milliseconds of ``fn`` with the L2 flushed before each call."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+def time_grouped_sums(ids, vals, masks, k: int) -> dict:
+    """One multi-column call timed beside its plain version and one PyTorch
+    call computing the same function: index_add_ of an [n, C] tensor into
+    k + 1 rows, trash ids clamped to the last one and masked rows zeroed
+    (prepared outside the timing). Also the launches the call makes."""
+    import ballista_tpu_torch.ops.grouped_sums as GS
+    from ballista_tpu_torch.ops.grouped_sums import grouped_sums_multi, grouped_sums_multi_ref
+    from ballista_tpu_torch.tools.timing import host_ms, time_cuda
 
-
-def time_grouped_sums(n: int, k: int, dtype: torch.dtype) -> dict:
-    from ballista_tpu_torch.ops.grouped_sums import grouped_sums, grouped_sums_ref
-
-    ids, valid, ivals, fvals = grouped_sums_inputs(n, k, 7, "cuda")
-    vals = ivals if dtype == torch.int64 else fvals
-    # the library yardstick: index_add_ into k + 1 slots, trash ids clamped
-    # to the last one, invalid rows zeroed (prepared outside the timing)
+    n, ncols = int(ids.shape[0]), len(vals)
+    dtype = next((v.dtype for v in vals if v is not None), torch.int64)
+    zero = torch.zeros((), dtype=dtype, device=ids.device)
     ids_c = torch.where((ids >= 0) & (ids < k), ids, torch.full_like(ids, k))
-    vals_m = torch.where(valid, vals, torch.zeros((), dtype=vals.dtype, device="cuda"))
-    lib = torch.zeros(k + 1, dtype=vals.dtype, device="cuda").index_add_(0, ids_c, vals_m)[:k]
-    ref = grouped_sums_ref(vals, ids, valid, k)
-    if dtype == torch.int64 and not torch.equal(lib, ref):
+    vals_nc = torch.stack([torch.where(m, m.to(dtype) if v is None else v, zero)
+                           for v, m in zip(vals, masks)], dim=1)
+    lib = torch.zeros(k + 1, ncols, dtype=dtype, device=ids.device).index_add_(0, ids_c, vals_nc)
+    ref = grouped_sums_multi_ref(vals, masks, ids, k)
+    if dtype == torch.int64 and not torch.equal(lib[:k].T, ref):
         raise AssertionError("index_add_ yardstick disagrees with the plain version")
-    ms = time_cuda(lambda: grouped_sums(vals, ids, valid, k))
-    plain_ms = time_cuda(lambda: grouped_sums_ref(vals, ids, valid, k))
+    before = GS.launches
+    grouped_sums_multi(vals, masks, ids, k)
+    per_call = GS.launches - before
+    ms = time_cuda(lambda: grouped_sums_multi(vals, masks, ids, k))
+    call_ms = host_ms(lambda: grouped_sums_multi(vals, masks, ids, k))
+    plain_ms = time_cuda(lambda: grouped_sums_multi_ref(vals, masks, ids, k))
     library_ms = time_cuda(
-        lambda: torch.zeros(k + 1, dtype=vals.dtype, device="cuda").index_add_(0, ids_c, vals_m)
+        lambda: torch.zeros(k + 1, ncols, dtype=dtype, device=ids.device).index_add_(0, ids_c, vals_nc)
     )
-    # one add per row is far below any listed peak rate's time: bytes bind
-    nbytes = n * (vals.element_size() + ids.element_size() + valid.element_size()) \
-        + k * vals.element_size()
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": nbytes}
+    # each input read once: ids, each distinct mask, each value column; the
+    # [C, k] sums written once. One add per row and column is far below any
+    # listed peak rate's time: bytes bind
+    row_bytes = ids.element_size() + len({m.data_ptr() for m in masks}) \
+        + sum(v.element_size() for v in vals if v is not None)
+    nbytes = n * row_bytes + ncols * k * zero.element_size()
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # what reading the same bytes costs PyTorch's own reduction: the rate a
+    # plain streaming kernel reaches on this card
+    flat = torch.ones(max(1, nbytes // 8), dtype=torch.int64, device=ids.device)
+    read_ms = time_cuda(lambda: flat.sum())
+    return {"n": n, "k": k, "columns": ncols, "dtype": str(dtype), "launches": per_call,
+            "ms": ms,
+            "host_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+            "share_of_bound": bound_ms / ms, "read_ms": read_ms}
 
 
 def main() -> int:
@@ -386,6 +474,7 @@ def main() -> int:
     max_err = 0.0
     for n, k, seed in ((1 << 21, 12, 1), (5000, 7, 2), (4097, 1, 3), (4097, 32, 4)):
         max_err = max(max_err, check_grouped_sums(n, k, seed, "cuda"))
+    max_err = max(max_err, check_multi_shapes("cuda"))
 
     phase("slice")
     lineitem = lineitem_dir(DATA_DIR, SF, LINEITEM_PARTS)
@@ -398,7 +487,7 @@ def main() -> int:
               flush=True)
         if run == "warm":
             print(f"{q} warm, all operator metrics: {m}", flush=True)
-            print(f"{q} warm, grouped_sums shapes (n, k, dtype): "
+            print(f"{q} warm, grouped_sums shapes (n, k, columns, dtype): calls "
                   f"{ {str(s): c for s, c in r['shapes'].items()} }", flush=True)
     for q, p in prof.items():
         print(f"{q} profiled run: device busy {p['busy'] * 1e3:.3f} ms = "
@@ -412,15 +501,38 @@ def main() -> int:
         for s, c in results[(q, "warm")]["shapes"].items():
             shapes[s] = shapes.get(s, 0) + c
     # the kernel against its plain version at every shape the slice gave it
-    for i, (n, k, dtype) in enumerate(sorted(shapes, key=lambda s: (s[0], s[1]))):
-        max_err = max(max_err, check_grouped_sums(n, k, 100 + i, "cuda"))
+    for i, (n, k, ncols, dtype) in enumerate(sorted(shapes, key=lambda s: s[:3])):
+        ids, vals, valid = stage_inputs(n, k, ncols, 100 + i, "cuda", dtype=dtype)
+        max_err = max(max_err, check_multi(f"slice shape n={n} k={k} C={ncols} {dtype}",
+                                           vals, [valid] * ncols, ids, k))
 
     phase("timing")
-    n, k, dtype = max(shapes, key=lambda s: (s[0], shapes[s]))
-    t = time_grouped_sums(n, k, dtype)
-    print(f"grouped_sums n={n} k={k} {dtype}: kernel {t['ms']:.4f} ms, plain "
-          f"{t['plain_ms']:.4f} ms, index_add_ {t['library_ms']:.4f} ms, bound "
-          f"{t['bound_ms']:.4f} ms ({t['bytes']} bytes) [{card}]", flush=True)
+    from ballista_tpu_torch.tools.timing import time_cuda
+
+    # the least one launch costs in this harness: a one-element add_
+    one = torch.zeros(1, device="cuda")
+    floor_ms = time_cuda(lambda: one.add_(1))
+    print(f"one launch of a one-element add_: {floor_ms:.4f} ms [{card}]", flush=True)
+    # (a) one column at (2^21, 12, int64), the one-column kernel's shape
+    ids, valid, ivals, _ = grouped_sums_inputs(1 << 21, 12, 7, "cuda")
+    timed = {"one_column": time_grouped_sums(ids, [ivals], [valid], 12)}
+    # (b) the largest and (c) the smallest stage of q1's warm run
+    q1_shapes = results[("q1", "warm")]["shapes"]
+    for label, pick in (("q1_stage", max), ("q1_final_stage", min)):
+        n, k, ncols, dtype = pick(q1_shapes, key=lambda s: (s[0], s[2]))
+        ids, vals, valid = stage_inputs(n, k, ncols, 8, "cuda", dtype=dtype)
+        timed[label] = time_grouped_sums(ids, vals, [valid] * ncols, k)
+    # (d) a stage wider than one launch takes at k = 32 (not on q1's path)
+    ids, vals, valid = stage_inputs(1 << 21, 32, 16, 9, "cuda")
+    timed["wide_k32"] = time_grouped_sums(ids, vals, [valid] * 16, 32)
+    for label, t in timed.items():
+        print(f"grouped_sums {label} n={t['n']} k={t['k']} C={t['columns']} {t['dtype']} "
+              f"({t['launches']} launch(es)): kernel {t['ms']:.4f} ms (host dispatch {t['host_ms']:.4f} ms), plain "
+              f"{t['plain_ms']:.4f} ms, index_add_ {t['library_ms']:.4f} ms, torch sum of "
+              f"the same bytes {t['read_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bytes']} bytes), {100 * t['share_of_bound']:.1f}% of bound [{card}]",
+              flush=True)
+    stage = timed["q1_stage"]
 
     kernels = [{
         "name": "grouped_sums", "route": "cuda",
@@ -428,9 +540,9 @@ def main() -> int:
         "replaces": "ballista_tpu/ops/pallas_kernels.py:20",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max_err,
-        "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"], "shape": {"n": n, "k": k, "dtype": str(dtype)},
+        "ms": stage["ms"], "plain_ms": stage["plain_ms"], "bound_ms": stage["bound_ms"],
+        "bound_by": stage["bound_by"], "library_ms": stage["library_ms"],
+        "timed": timed, "floor_ms": floor_ms,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

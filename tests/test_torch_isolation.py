@@ -12,6 +12,8 @@ import sys
 import pytest
 import torch
 
+from test_torch_data import torch_tpch_dir  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ballista_tpu_torch")
 
@@ -100,10 +102,10 @@ print("ROWS", out.num_rows)
 """
 
 
-def test_q1_runs_with_jax_and_reference_blocked(tpch_dir):
+def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
-        [sys.executable, "-c", _Q1_BLOCKED.format(repo=REPO, data=tpch_dir)],
+        [sys.executable, "-c", _Q1_BLOCKED.format(repo=REPO, data=torch_tpch_dir)],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]

@@ -29,6 +29,8 @@ from ballista_tpu_torch.plan.schema import Schema as TSchema
 from ballista_tpu_torch.sql.parser import parse_sql as t_parse
 from ballista_tpu_torch.sql.planner import SqlPlanner as TPlanner
 
+from test_torch_data import torch_tpch_dir  # noqa: F401
+
 
 # ---- shared inputs -----------------------------------------------------------------
 def _carry(enc_j):
@@ -43,8 +45,8 @@ def _carry(enc_j):
 
 
 @pytest.fixture(scope="module")
-def lineitem(tpch_dir):
-    d = os.path.join(tpch_dir, "lineitem")
+def lineitem(torch_tpch_dir):
+    d = os.path.join(torch_tpch_dir, "lineitem")
     first = sorted(f for f in os.listdir(d) if f.endswith(".parquet"))[0]
     return pq.read_table(os.path.join(d, first)).slice(0, 3000)
 

@@ -14,7 +14,8 @@ from ballista_tpu.client.context import BallistaContext as JaxContext
 from ballista_tpu.models.tpch import TPCH_TABLES
 from ballista_tpu_torch.client.context import BallistaContext
 
-from test_tpch_numpy import ORDERED, assert_frames_match, oracle_tables  # noqa: F401
+from test_torch_data import torch_oracle_tables, torch_tpch_dir  # noqa: F401
+from test_tpch_numpy import ORDERED, assert_frames_match
 from tpch_oracle import ORACLES
 
 QUERIES = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "queries")
@@ -26,44 +27,45 @@ def _sql(qname: str) -> str:
 
 
 @pytest.fixture(scope="module")
-def tctx(tpch_dir):
+def tctx(torch_tpch_dir):
     c = BallistaContext.standalone(device="cpu")
     for t in TPCH_TABLES:
-        c.register_parquet(t, os.path.join(tpch_dir, t))
+        c.register_parquet(t, os.path.join(torch_tpch_dir, t))
     return c
 
 
 @pytest.fixture(scope="module")
-def jctx(tpch_dir):
+def jctx(torch_tpch_dir):
     c = JaxContext.standalone(backend="jax")
     for t in TPCH_TABLES:
-        c.register_parquet(t, os.path.join(tpch_dir, t))
+        c.register_parquet(t, os.path.join(torch_tpch_dir, t))
     return c
 
 
 @pytest.fixture
 def kernel_calls(monkeypatch):
-    """Counts grouped_sums calls (the CPU runs its plain version, so the
-    launch counter stays 0 here; the call is what shows the path)."""
+    """Records (k, columns) of each grouped_sums call (the CPU runs its
+    plain version, so the launch counter stays 0 here; the call is what
+    shows the path)."""
     import ballista_tpu_torch.ops.grouped_sums as GS
 
-    real = GS.grouped_sums
+    real = GS.grouped_sums_multi
     calls = []
 
-    def counting(*a, **kw):
-        calls.append(a[3] if len(a) > 3 else kw.get("k"))
-        return real(*a, **kw)
+    def counting(vals, masks, ids, k):
+        calls.append((k, len(vals)))
+        return real(vals, masks, ids, k)
 
-    monkeypatch.setattr(GS, "grouped_sums", counting)
+    monkeypatch.setattr(GS, "grouped_sums_multi", counting)
     return calls
 
 
 @pytest.mark.parametrize("qname", ["q1", "q6", "q4", "q12"])
-def test_slice_matches_jax_engine_and_oracle(tctx, jctx, oracle_tables, qname):
+def test_slice_matches_jax_engine_and_oracle(tctx, jctx, torch_oracle_tables, qname):
     got = tctx.sql(_sql(qname)).collect().to_pandas()
     want_jax = jctx.sql(_sql(qname)).collect().to_pandas()
     assert_frames_match(got, want_jax, qname in ORDERED, f"{qname} vs jax")
-    assert_frames_match(got, ORACLES[qname](oracle_tables), qname in ORDERED, qname)
+    assert_frames_match(got, ORACLES[qname](torch_oracle_tables), qname in ORDERED, qname)
 
 
 @pytest.mark.parametrize("qname", ["q1", "q6"])
@@ -73,7 +75,7 @@ def test_slice_runs_on_device_through_grouped_sums(tctx, kernel_calls, qname):
     assert m.get("op.HostFallback.count", 0.0) == 0.0, m
     assert m.get("op.DeviceExecute.count", 0.0) >= 2  # partial and final stages
     assert kernel_calls, f"{qname}: grouped_sums never called"
-    assert all(0 < k <= 32 for k in kernel_calls)
+    assert all(0 < k <= 32 and cols > 0 for k, cols in kernel_calls)
     for key in ("op.DeviceTransfer.bytes", "op.DeviceExecute.rows", "op.DeviceFetch.bytes"):
         assert m.get(key, 0.0) > 0, key
 
@@ -88,6 +90,21 @@ def test_join_query_falls_back_to_host_kernels(tctx):
 
 
 @pytest.mark.parametrize("qname", [f"q{i}" for i in range(1, 23)])
-def test_tpch_sweep_matches_oracle(tctx, oracle_tables, qname):
+def test_tpch_sweep_matches_oracle(tctx, torch_oracle_tables, qname):
     got = tctx.sql(_sql(qname)).collect().to_pandas()
-    assert_frames_match(got, ORACLES[qname](oracle_tables), qname in ORDERED, qname)
+    assert_frames_match(got, ORACLES[qname](torch_oracle_tables), qname in ORDERED, qname)
+
+
+def test_wide_aggregate_matches_jax_engine(tctx, jctx, kernel_calls):
+    """Twenty AVGs, two SUMs and a COUNT by (returnflag, linestatus): each
+    final stage sums 44 int64 columns, more than one kernel launch takes
+    (the wrapper splits such a call on the card). Rows equal the JAX
+    engine's."""
+    aggs = [f"avg(l_quantity + {i}) as a{i}" for i in range(20)]
+    aggs += ["sum(l_extendedprice) as s0", "sum(l_discount) as s1", "count(*) as n"]
+    sql = (f"select l_returnflag, l_linestatus, {', '.join(aggs)} from lineitem "
+           "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus")
+    got = tctx.sql(sql).collect().to_pandas()
+    assert tctx.last_engine_metrics.get("op.HostFallback.count", 0.0) == 0.0
+    assert max(cols for _, cols in kernel_calls) > 32
+    assert_frames_match(got, jctx.sql(sql).collect().to_pandas(), True, "wide vs jax")
