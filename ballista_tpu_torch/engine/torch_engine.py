@@ -2,19 +2,22 @@
 
 The port of ``ballista_tpu/engine/jax_engine.py``. Whole-stage execution:
 the device-supported subtree of a stage (filter, project, hash aggregate,
-sort) runs as one PyTorch program over tensors on the engine's device, with
-power-of-two row buckets and validity masks. Host work is confined to the
-leaves: scans and unsupported children materialize host-side (numpy
-kernels), are encoded, and enter the program as tensors. String dictionaries
-are host metadata — string predicates become lookup tables gathered by code
-on the device.
+sort, hash join, cross join) runs as one PyTorch program over tensors on the
+engine's device, with power-of-two row buckets and validity masks. Host work
+is confined to the leaves: scans and unsupported children materialize
+host-side (numpy kernels), are encoded, and enter the program as tensors. A
+hash join's build side is sorted by key hash on the host once per execution
+and probed on the device with ``searchsorted``. String dictionaries are host
+metadata — string predicates become lookup tables gathered by code on the
+device.
 
 PyTorch runs eagerly, so a stage program is traced anew on every call: there
 is no compile cache, precompile or hint pipeline. Nodes outside
 ``_supported`` run on the host kernels, as the JAX engine's unsupported
-nodes do, and each such run adds to ``op.HostFallback.count``. Joins,
-windows, streaming, leaf caches, the memory governor and the fused and
-multi-device exchanges are not ported yet.
+nodes do, and each such run adds to ``op.HostFallback.count``. Windows,
+streaming, leaf caches, the memory governor (and with it the paged join and
+the budgeted duplicate cap) and the fused and multi-device exchanges are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -22,13 +25,16 @@ import time
 from dataclasses import replace
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ballista_tpu_torch.config import BALLISTA_TPU_NATIVE_DTYPES, BallistaConfig
 from ballista_tpu_torch.engine.numpy_engine import NumpyEngine
 from ballista_tpu_torch.errors import ExecutionError
+from ballista_tpu_torch.ops import kernels_np as KNP
 from ballista_tpu_torch.ops import kernels_torch as KT
 from ballista_tpu_torch.ops.batch import ColumnBatch
+from ballista_tpu_torch.ops.eval_np import evaluate
 from ballista_tpu_torch.plan import physical as P
 from ballista_tpu_torch.plan.expr import (
     Agg, Alias, BinaryOp, Case, Cast, Col, Expr, Func, InList, IsNull, Like, Lit,
@@ -52,7 +58,8 @@ def resolve_device(device: Optional[str]) -> str:
 
 class _HostFallback(Exception):
     """Raised at trace time when a runtime property forces the host kernel
-    path for one stage (e.g. a string aggregate argument)."""
+    path for one stage (e.g. a string aggregate argument, or a join build
+    side whose duplicate-key runs exceed the cap)."""
 
 
 # operators the device could run: when one runs on the host kernels instead,
@@ -60,6 +67,16 @@ class _HostFallback(Exception):
 # engine)
 _DEVICE_OPS = (P.FilterExec, P.ProjectExec, P.HashAggregateExec, P.SortExec,
                P.HashJoinExec, P.CrossJoinExec, P.WindowExec)
+
+# duplicate-key run bounds of a join's build side (the JAX package's
+# MAX_BUILD_DUP and memory_model.BUILD_DUP_CEILING). Semi and anti joins
+# probe each candidate of a run in turn, so they keep MAX_BUILD_DUP; emit
+# joins may carry runs up to the ceiling: with no device budget (the memory
+# governor is not ported) memory cannot veto, and MAX_EXPAND_ROWS bounds the
+# expanded probe at trace time
+MAX_BUILD_DUP = 32
+_BUILD_DUP_CEILING = 1024
+MAX_EXPAND_ROWS = 1 << 23  # probe n_pad * duplicate bucket, emit joins
 
 
 class TorchEngine(NumpyEngine):
@@ -69,6 +86,9 @@ class TorchEngine(NumpyEngine):
                  device: Optional[str] = None):
         super().__init__(config or BallistaConfig())
         self.device = torch.device(resolve_device(device))
+        # prepared join build sides, computed once per execution (see
+        # _prepared_build)
+        self._build_prep: dict[tuple, tuple] = {}
 
     def _apply_dtype_policy(self) -> None:
         # module-level so trace-time literal/arith decisions see it
@@ -79,19 +99,33 @@ class TorchEngine(NumpyEngine):
         # numpy engine would only interleave launches
         self._apply_dtype_policy()
         self._cache.clear()
+        self._build_prep.clear()
         return [self._exec(plan, i) for i in range(plan.output_partitions())]
 
     # ---- dispatch --------------------------------------------------------------
     def _exec(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
-        if _supported(plan):
+        if not _supported(plan):
+            return super()._exec(plan, part)
+        try:
+            return self._timed_stage(plan, part)
+        except (_HostFallback, KT.DeviceUnsupported):
+            pass  # a runtime shape the device path cannot express
+        if isinstance(plan, P.HashAggregateExec) and plan.mode == "partial":
+            # the input cannot join the aggregate in one program: materialize
+            # it (through its own device stages where it can) and aggregate
+            # on the device, as the JAX engine's fused exchange does with a
+            # partial aggregate's input
             try:
-                t0 = time.time()
-                out = self._run_stage(plan, part)
-                self._metric("op.CompiledStage.time_s", time.time() - t0)
-                return out
+                return self._timed_stage(plan, part, own_leaf=plan.input)
             except (_HostFallback, KT.DeviceUnsupported):
-                pass  # a runtime shape the device path cannot express: host kernels
-        return super()._exec(plan, part)
+                pass
+        return super()._exec(plan, part)  # host kernels
+
+    def _timed_stage(self, plan: P.PhysicalPlan, part: int, own_leaf=None) -> ColumnBatch:
+        t0 = time.time()
+        out = self._run_stage(plan, part, own_leaf)
+        self._metric("op.CompiledStage.time_s", time.time() - t0)
+        return out
 
     def _exec_inner(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
         if isinstance(plan, _DEVICE_OPS):
@@ -107,8 +141,8 @@ class TorchEngine(NumpyEngine):
             torch.cuda.synchronize(self.device)
 
     # ---- the stage driver ----------------------------------------------------------
-    def _run_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
-        leaves = self._collect_leaves(plan, part)
+    def _run_stage(self, plan: P.PhysicalPlan, part: int, own_leaf=None) -> ColumnBatch:
+        leaves = self._collect_leaves(plan, part, own_leaf)
         tensors = self._device_args(leaves)
         stage_fn, holder = _make_stage_fn(plan, _stage_layout(leaves))
 
@@ -116,7 +150,7 @@ class TorchEngine(NumpyEngine):
         out = stage_fn(*tensors)
         self._sync()
         dt = time.time() - t0
-        in_rows = float(sum(enc.n_rows for enc, _ in leaves.values()))
+        in_rows = float(sum(enc.n_rows for _, enc, _, _ in leaves.values()))
         self._metric("op.DeviceExecute.time_s", dt)
         self._metric("op.DeviceExecute.count", 1.0)
         self._metric("op.DeviceExecute.rows", in_rows)
@@ -133,14 +167,16 @@ class TorchEngine(NumpyEngine):
         return batch
 
     def _device_args(self, leaves: dict) -> list:
-        """Every leaf array on the device, in the stage's parameter order.
-        The copies are issued non-blocking from pinned memory and awaited
-        together, so the transfer time stays out of the execute time."""
+        """Every leaf array on the device, in the stage's parameter order (a
+        build leaf's sorted keys after its columns). The copies are issued
+        non-blocking from pinned memory and awaited together, so the
+        transfer time stays out of the execute time."""
         t0 = time.time()
         out = []
         nbytes = 0
-        for enc, _node in leaves.values():
-            for a in enc.arrays:
+        for _kind, enc, extra, _node in leaves.values():
+            arrays = enc.arrays if extra is None else enc.arrays + [extra[0]]
+            for a in arrays:
                 out.append(KT.host_to_device(a, self.device))
                 nbytes += a.nbytes
         self._sync()
@@ -149,25 +185,72 @@ class TorchEngine(NumpyEngine):
         return out
 
     # ---- leaf collection -------------------------------------------------------------
-    def _collect_leaves(self, plan: P.PhysicalPlan, part: int) -> dict:
+    def _collect_leaves(self, plan: P.PhysicalPlan, part: int, own_leaf=None) -> dict:
         """Walk the device subtree; materialize and encode its leaf inputs on
-        the host. Returns {id(node): (EncodedBatch, node)}; insertion order is
-        the stage's parameter layout."""
+        the host. Returns {id(node): (kind, EncodedBatch, extra, node)}:
+
+        * ``"out"`` — the node's own output (an unsupported subtree, or
+          ``own_leaf``, which runs as its own stages);
+        * ``"build"`` — a hash join's prepared build side, ``extra`` its
+          (sorted build keys, duplicate bucket);
+        * ``"cross"`` — a cross join's one-row right side.
+
+        Insertion order is the stage's parameter layout."""
         leaves: dict[int, tuple] = {}
 
         def visit(node: P.PhysicalPlan):
+            if node is own_leaf:
+                leaves[id(node)] = ("out", self._encode(self._exec(node, part)), None, node)
+                return
+            if isinstance(node, P.HashJoinExec) and _supported(node):
+                visit(node.left)
+                enc, bk, max_dup = self._prepared_build(node, part)
+                leaves[id(node)] = ("build", enc, (bk, max_dup), node)
+                return
+            if isinstance(node, P.CrossJoinExec) and _supported(node):
+                visit(node.left)
+                right = self._materialized_single(node.right)
+                if right.num_rows != 1:
+                    raise _HostFallback(f"cross join right side of {right.num_rows} rows")
+                leaves[id(node)] = ("cross", self._encode(right), None, node)
+                return
             if _supported(node):
                 for c in node.children():
                     visit(c)
                 return
-            batch = self._exec_child(node, part)
-            t0 = time.time()
-            enc = KT.encode_host_batch(batch)
-            self._metric("op.HostEncode.time_s", time.time() - t0)
-            leaves[id(node)] = (enc, node)
+            leaves[id(node)] = ("out", self._encode(self._exec_child(node, part)), None, node)
 
         visit(plan)
         return leaves
+
+    def _encode(self, batch: ColumnBatch):
+        t0 = time.time()
+        enc = KT.encode_host_batch(batch)
+        self._metric("op.HostEncode.time_s", time.time() - t0)
+        return enc
+
+    def _prepared_build(self, node: P.HashJoinExec, part: int) -> tuple:
+        """The join's build side sorted by key hash and encoded, once per
+        execution. Keyed on the build subtree's identity, the partition (none
+        for a collected build, which every probe partition shares), the key
+        expressions and outer-ness, which together pin the prepared layout."""
+        key = (
+            id(node.right),
+            None if node.collect_build else part,
+            tuple(repr(r) for _, r in node.on),
+            node.how in ("right", "full"),
+        )
+        prep = self._build_prep.get(key)
+        if prep is None:
+            if node.collect_build:
+                build = self._materialized_single(node.right)
+            else:
+                build = self._exec_child(node.right, part)
+            t0 = time.time()
+            prep = _prep_build(build, node, _build_dup_cap(node))
+            self._metric("op.HostEncode.time_s", time.time() - t0)
+            self._build_prep[key] = prep
+        return prep
 
     def _exec_child(self, node: P.PhysicalPlan, part: int) -> ColumnBatch:
         """Host-materialize a leaf; its own subtree may still use device
@@ -175,26 +258,70 @@ class TorchEngine(NumpyEngine):
         return NumpyEngine._exec(self, node, part)
 
 
+def _build_dup_cap(node: P.HashJoinExec) -> int:
+    return MAX_BUILD_DUP if node.how in ("semi", "anti") else _BUILD_DUP_CEILING
+
+
+def _prep_build(build: ColumnBatch, node: P.HashJoinExec, dup_cap: int):
+    """(encoding, sorted int64 key hashes, duplicate bucket) of a build side:
+    rows with a NULL key dropped (kept after the keyed rows for right and
+    full joins), the rest ordered by ``kernels_np.combined_key``, whose bits
+    the device's probe hash reproduces. Raises _HostFallback when a key's
+    run of rows exceeds ``dup_cap``."""
+    if node.on:
+        bkey, keep = KNP.combined_key([evaluate(r, build) for _, r in node.on])
+    else:
+        bkey = np.zeros(build.num_rows, np.int64)
+        keep = np.ones(build.num_rows, bool)
+    idx = np.nonzero(keep)[0]
+    bk = bkey[idx]
+    _, counts = np.unique(bk, return_counts=True)
+    max_dup = int(counts.max()) if len(counts) else 1
+    if max_dup > dup_cap:
+        raise _HostFallback(f"build key run of {max_dup} rows, past the cap {dup_cap}")
+    order = np.argsort(bk, kind="stable")
+    if node.how in ("right", "full"):
+        # outer-emitting joins keep NULL-key build rows too (after the keyed
+        # prefix, so searchsorted over bk never matches them): they are
+        # unmatched by definition and are emitted once
+        build_sorted = build.take(np.concatenate([idx[order], np.nonzero(~keep)[0]]))
+    else:
+        build_sorted = build.take(idx[order])
+    enc = KT.encode_host_batch(build_sorted)
+    # a power-of-two bucket, as the JAX package rounds it for its compile cache
+    dup = 1 if max_dup == 1 else KT.bucket_size(max_dup, minimum=2)
+    return enc, bk[order], dup
+
+
 def _stage_layout(leaves: dict) -> dict:
-    """{leaf node id: (start, end, EncodedBatch)} over the flat tensor list."""
+    """{leaf node id: (start, end, kind, EncodedBatch, duplicate bucket)}
+    over the flat tensor list; a build leaf's last tensor is its sorted
+    keys."""
     slices = {}
     pos = 0
-    for node_id, (enc, _node) in leaves.items():
-        slices[node_id] = (pos, pos + len(enc.arrays), enc)
-        pos += len(enc.arrays)
+    for node_id, (kind, enc, extra, _node) in leaves.items():
+        count = len(enc.arrays) + (0 if extra is None else 1)
+        slices[node_id] = (pos, pos + count, kind, enc, None if extra is None else extra[1])
+        pos += count
     return slices
 
 
 def _make_stage_fn(plan: P.PhysicalPlan, slices: dict):
     """The whole-stage function over the flat tensor layout, plus the holder
-    its call fills with the output's static metadata."""
+    its call fills with the output's static metadata. Its environment maps a
+    leaf node's id to (kind, DeviceBatch, (sorted build keys, duplicate
+    bucket) or None)."""
     holder: dict = {}
 
     def stage_fn(*args):
-        env = {
-            node_id: KT.device_batch_from_encoded(enc, list(args[s:e]))
-            for node_id, (s, e, enc) in slices.items()
-        }
+        env = {}
+        for node_id, (s, e, kind, enc, max_dup) in slices.items():
+            chunk = list(args[s:e])
+            if kind == "build":
+                env[node_id] = (kind, KT.device_batch_from_encoded(enc, chunk[:-1]),
+                                (chunk[-1], max_dup))
+            else:
+                env[node_id] = (kind, KT.device_batch_from_encoded(enc, chunk), None)
         out_db = _trace_node(plan, env)
         arrays, meta = KT.flatten_device_batch(out_db)
         holder["meta"] = meta
@@ -221,6 +348,14 @@ def _supported(plan: P.PhysicalPlan) -> bool:
             if a.expr is not None and not _expr_ok(a.expr):
                 return False
         return True
+    if isinstance(plan, P.HashJoinExec):
+        if plan.how not in ("inner", "left", "semi", "anti", "right", "full"):
+            return False
+        if plan.filter is not None and not _expr_ok(plan.filter):
+            return False
+        return all(_expr_ok(l) and _expr_ok(r) for l, r in plan.on)
+    if isinstance(plan, P.CrossJoinExec):
+        return True
     if isinstance(plan, P.SortExec):
         return all(_expr_ok(e) for e, _ in plan.keys)
     return False
@@ -243,7 +378,11 @@ def _expr_ok(e: Expr) -> bool:
 # ---- tracing (module-level: the stage function must not retain an engine) ---------
 def _trace_node(plan: P.PhysicalPlan, env: dict):
     if id(plan) in env:
-        return env[id(plan)]
+        kind, db, _extra = env[id(plan)]
+        # "out" is the node's output; "build" and "cross" entries hold a
+        # join's right input, and the join itself still traces
+        if kind == "out":
+            return db
 
     if isinstance(plan, P.FilterExec):
         db = _trace_node(plan.input, env)
@@ -262,6 +401,12 @@ def _trace_node(plan: P.PhysicalPlan, env: dict):
     if isinstance(plan, P.HashAggregateExec):
         return _trace_agg(plan, env)
 
+    if isinstance(plan, P.HashJoinExec):
+        return _trace_join(plan, env)
+
+    if isinstance(plan, P.CrossJoinExec):
+        return _trace_cross(plan, env)
+
     if isinstance(plan, P.SortExec):
         db = _trace_node(plan.input, env)
         key_specs = [(KT.eval_dev(e, db), asc) for e, asc in plan.keys]
@@ -279,17 +424,20 @@ def _trace_agg(plan: P.HashAggregateExec, env: dict):
     out_schema = plan.schema()
     key_cols = [KT.eval_dev(g, db) for g in plan.group_exprs]
 
+    reps = per_key = None
     if not key_cols:
         ids = (~db.row_valid).to(torch.int64)  # valid rows 0, the rest 1
-        k, per_key = 1, None
+        k = 1
     else:
         kind, info = KT.group_plan(key_cols, db.n_pad)
-        if kind != "direct":
-            # sort-based segmentation hashes the keys with splitmix64, which
-            # comes with the join slice
-            raise KT.DeviceUnsupported("sorted grouping is not ported yet")
-        per_key = info
-        ids, k = KT.group_ids_direct(db, key_cols, per_key)
+        if kind == "direct":
+            per_key = info
+            ids, k = KT.group_ids_direct(db, key_cols, per_key)
+        else:
+            # bounded-k sorted segmentation: k < n_pad whenever dictionary
+            # sizes or encoded int ranges bound the key cardinality
+            k = info
+            ids, reps = KT.group_ids_sorted(db, key_cols, k)
 
     sums = KT.SegSums(ids, k, db.row_valid)
     seen_at = sums.count(None)
@@ -298,7 +446,19 @@ def _trace_agg(plan: P.HashAggregateExec, env: dict):
     res = sums.compute()
 
     out_cols: list = []
-    if key_cols:
+    if reps is not None:
+        safe = torch.clamp(reps, 0, db.n_pad - 1)
+        for c in key_cols:
+            if c.null is None:
+                out_cols.append(replace(c, data=c.data[safe], null=None))
+                continue
+            # data under NULL zeroed (join gathers leave garbage there), so
+            # later hashing buckets nulls alike on every device
+            null = c.null[safe]
+            data = torch.where(null, torch.zeros((), dtype=c.data.dtype, device=c.data.device),
+                               c.data[safe])
+            out_cols.append(replace(c, data=data, null=null))
+    elif key_cols:
         out_cols.extend(KT.decode_group_keys(key_cols, per_key, k))
     for build in builds:
         out_cols.extend(build(res))
@@ -419,6 +579,210 @@ def _trace_agg_cols(mode, a: Agg, name, db, sums):
     if a.fn in ("min", "max"):
         return min_max_of(st)
     raise ExecutionError(a.fn)
+
+
+# ---- joins -----------------------------------------------------------------------------
+def _trace_join(plan: P.HashJoinExec, env: dict):
+    probe = _trace_node(plan.left, env)
+    _kind, build_dev, (bk_sorted, max_dup) = env[id(plan)]
+    return _probe_join(plan, probe, build_dev, bk_sorted, max_dup)
+
+
+def _probe_join(plan: P.HashJoinExec, probe, build_dev, bk_sorted, max_dup: int):
+    """The join of the traced probe side against the prepared build side:
+    probe keys hash (splitmix64 over ``_canonical_dev``, the bits
+    ``kernels_np.combined_key`` gave the build), ``searchsorted`` finds each
+    key's run in the sorted build keys, and build columns gather from it."""
+    m = int(bk_sorted.shape[0])
+    dev = probe.device
+    pk = torch.zeros(probe.n_pad, dtype=torch.int64, device=dev)
+    pnull = torch.zeros(probe.n_pad, dtype=torch.bool, device=dev)
+    for l, _ in plan.on:
+        c = KT.eval_dev(l, probe)
+        pk = KT.splitmix64_dev(pk ^ KT._canonical_dev(c))
+        if c.null is not None:
+            pnull = pnull | c.null
+
+    if m == 0:
+        found = torch.zeros(probe.n_pad, dtype=torch.bool, device=dev)
+        pos = torch.zeros(probe.n_pad, dtype=torch.int64, device=dev)
+    else:
+        pos = torch.clamp(torch.searchsorted(bk_sorted, pk), 0, m - 1)
+        found = (bk_sorted[pos] == pk) & ~pnull & probe.row_valid
+
+    if max_dup > 1:
+        if plan.how in ("semi", "anti"):
+            # existence over the key's run of up to max_dup candidates,
+            # OR-ing filter matches (q21's EXISTS / NOT EXISTS self-joins)
+            any_match = torch.zeros(probe.n_pad, dtype=torch.bool, device=dev)
+            base_ok = ~pnull & probe.row_valid
+            for j in range(max_dup):
+                idx = torch.clamp(pos + j, 0, m - 1)
+                cand_ok = ((pos + j) < m) & (bk_sorted[idx] == pk) & base_ok
+                if plan.filter is not None:
+                    g = _gather_build_cols(build_dev, idx, cand_ok)
+                    cand_ok = cand_ok & _pair_filter(plan, probe, build_dev, probe.cols + g,
+                                                     probe.row_valid, probe.n_rows)
+                any_match = any_match | cand_ok
+            return _semi_anti(plan, probe, any_match)
+        return _trace_join_expand(plan, probe, build_dev, bk_sorted, pk, pnull, pos, max_dup)
+
+    gathered = _gather_build_cols(build_dev, pos, found)
+    if plan.filter is not None and plan.on:
+        found = found & _pair_filter(plan, probe, build_dev, probe.cols + gathered,
+                                     probe.row_valid, probe.n_rows)
+        # a match the filter rejects leaves its probe row unmatched: NULL
+        # build columns in left and full joins (the JAX engine keeps the
+        # rejected row's values there, against its own host kernels)
+        gathered = [replace(g, null=g.null | ~found) for g in gathered]
+
+    if plan.how in ("semi", "anti"):
+        return _semi_anti(plan, probe, found)
+    if plan.how in ("right", "full"):
+        matched = torch.zeros(build_dev.n_pad, dtype=torch.int32, device=dev)
+        if m:
+            matched = matched.scatter_reduce(0, pos, found.to(torch.int32), "amax",
+                                             include_self=True)
+        sec1_valid = found if plan.how == "right" else probe.row_valid
+        return _assemble_outer(plan, probe.cols, sec1_valid, gathered, build_dev, matched > 0)
+    if plan.how == "inner":
+        return KT.DeviceBatch(plan.schema(), probe.cols + gathered,
+                              probe.row_valid & found, probe.n_rows)
+    # left join: unmatched probe rows keep nulls on the build side
+    return KT.DeviceBatch(plan.schema(), probe.cols + gathered, probe.row_valid, probe.n_rows)
+
+
+def _semi_anti(plan, probe, found):
+    keep = found if plan.how == "semi" else ~found
+    return KT.DeviceBatch(plan.schema(), probe.cols, probe.row_valid & keep, probe.n_rows)
+
+
+def _pair_filter(plan, probe, build_dev, cols, row_valid, n_rows):
+    """The join filter over ``cols``, (probe row, gathered build row)
+    pairs; NULL is false."""
+    pair = KT.DeviceBatch(probe.schema.join(build_dev.schema), cols, row_valid, n_rows)
+    fv, fn_ = KT.eval_dev_predicate(plan.filter, pair)
+    return fv if fn_ is None else (fv & ~fn_)
+
+
+def _trace_join_expand(plan, probe, build_dev, bk_sorted, pk, pnull, pos, max_dup):
+    """Bounded-duplicate emit join (inner, left, right, full): every probe
+    row fans out into a ``max_dup``-wide slot group; slot j holds the j-th
+    build row of the probe key's run, unmatched slots are masked invalid.
+    The output pad is probe.n_pad * max_dup (both powers of two)."""
+    n_pad = probe.n_pad
+    D = max_dup
+    if n_pad * D > MAX_EXPAND_ROWS:
+        raise _HostFallback(f"expanded probe of {n_pad} x {D} rows")
+    m = int(bk_sorted.shape[0])
+    out_pad = n_pad * D
+    dev = probe.device
+
+    base_ok = ~pnull & probe.row_valid
+    pos_mat = pos[:, None] + torch.arange(D, device=dev)  # (n_pad, D)
+    safe = torch.clamp(pos_mat, 0, m - 1)
+    match = (pos_mat < m) & (bk_sorted[safe] == pk[:, None]) & base_ok[:, None]
+    flat_idx = safe.reshape(out_pad)
+    flat_match = match.reshape(out_pad)
+
+    probe_cols = [
+        replace(
+            c,
+            data=c.data.repeat_interleave(D),
+            null=c.null.repeat_interleave(D) if c.null is not None else None,
+            ssum=None,  # D-way fan-out invalidates the subset-sum bound
+        )
+        for c in probe.cols
+    ]
+    gathered = _gather_build_cols(build_dev, flat_idx, flat_match)
+
+    if plan.filter is not None:
+        flat_match = flat_match & _pair_filter(plan, probe, build_dev, probe_cols + gathered,
+                                               flat_match, out_pad)
+
+    if plan.how == "inner":
+        return KT.DeviceBatch(plan.schema(), probe_cols + gathered, flat_match, out_pad)
+
+    def matched_build():
+        return torch.zeros(build_dev.n_pad, dtype=torch.int32, device=dev).scatter_reduce(
+            0, flat_idx, flat_match.to(torch.int32), "amax", include_self=True) > 0
+
+    if plan.how == "right":
+        return _assemble_outer(plan, probe_cols, flat_match, gathered, build_dev,
+                               matched_build())
+
+    # left/full: matched slots + one null-padded slot-0 row for match-less rows
+    any_match = flat_match.reshape(n_pad, D).any(dim=1)
+    slot0 = (torch.arange(out_pad, device=dev) % D) == 0
+    pv = probe.row_valid.repeat_interleave(D)
+    row_valid = flat_match | (slot0 & pv & ~any_match.repeat_interleave(D))
+    build_cols = [
+        replace(c, null=(c.null if c.null is not None
+                         else torch.zeros(out_pad, dtype=torch.bool, device=dev)) | ~flat_match)
+        for c in gathered
+    ]
+    if plan.how == "full":
+        return _assemble_outer(plan, probe_cols, row_valid, build_cols, build_dev,
+                               matched_build())
+    return KT.DeviceBatch(plan.schema(), probe_cols + build_cols, row_valid, out_pad)
+
+
+def _assemble_outer(plan, probe_cols, sec1_valid, gathered, build_dev, matched):
+    """Right and full outer emission: a probe-major matched section, then
+    the unmatched build rows (null probe side). Build sides of right and full
+    joins are hash-partitioned on the join keys (never broadcast), so a
+    build row's matches all live in this partition and emitting the
+    unmatched rows per partition emits each exactly once."""
+    n1 = int(sec1_valid.shape[0])
+    n2 = build_dev.n_pad
+    out_pad = KT.bucket_size(n1 + n2)
+    dev = sec1_valid.device
+    sec2_valid = build_dev.row_valid & ~matched
+
+    def falses(n):
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+
+    cols = []
+    for c in probe_cols:  # probe side: data in section 1, nulls in section 2
+        data = torch.cat([c.data, torch.zeros(n2, dtype=c.data.dtype, device=dev)])
+        null1 = c.null if c.null is not None else falses(n1)
+        null = torch.cat([null1, torch.ones(n2, dtype=torch.bool, device=dev)])
+        cols.append(replace(c, data=_pad_dev(data, out_pad), null=_pad_dev(null, out_pad)))
+    for g, b in zip(gathered, build_dev.cols):  # build side: matches, then rows
+        data = torch.cat([g.data, b.data])
+        gnull = g.null if g.null is not None else falses(n1)
+        bnull = b.null if b.null is not None else falses(n2)
+        null = torch.cat([gnull, bnull])
+        cols.append(replace(g, data=_pad_dev(data, out_pad), null=_pad_dev(null, out_pad)))
+    row_valid = _pad_dev(torch.cat([sec1_valid, sec2_valid]), out_pad)
+    return KT.DeviceBatch(plan.schema(), cols, row_valid, n1 + n2)
+
+
+def _trace_cross(plan: P.CrossJoinExec, env: dict):
+    """A cross join against a one-row right side: its values broadcast to
+    every probe row."""
+    probe = _trace_node(plan.left, env)
+    _kind, right_db, _extra = env[id(plan)]
+    n = probe.n_pad
+    cols = list(probe.cols)
+    for c in right_db.cols:
+        data = c.data[:1].expand(n).contiguous()
+        null = c.null[:1].expand(n).contiguous() if c.null is not None else None
+        cols.append(replace(c, data=data, null=null, ssum=None))  # broadcast fan-out
+    return KT.DeviceBatch(plan.schema(), cols, probe.row_valid, probe.n_rows)
+
+
+def _gather_build_cols(build_dev, pos, found):
+    """Build columns at ``pos``, NULL where ``found`` is false. Gathers can
+    repeat build rows, so no subset-sum bound survives: ``ssum`` is None on
+    every gathered column, as ``presum_safe`` downstream expects."""
+    safe = torch.clamp(pos, 0, build_dev.n_pad - 1)
+    notfound = ~found
+    out = []
+    for c in build_dev.cols:
+        null = c.null[safe] if c.null is not None else torch.zeros_like(found)
+        out.append(replace(c, data=c.data[safe], null=null | notfound, ssum=None))
+    return out
 
 
 def _sum_dtype(dt: DataType) -> DataType:

@@ -14,9 +14,12 @@ Execution model:
   host-side dictionary; string predicates become lookup tables evaluated on
   the (tiny) dictionary and gathered by code on the device;
 * grouping: direct mixed-radix segment ids when key cardinality is provably
-  small (dictionary sizes / value ranges). Sort-based segmentation needs the
-  splitmix64 hash, which comes with the join slice: such plans raise
-  ``DeviceUnsupported`` and run on the host kernels;
+  small (dictionary sizes / value ranges), else sort-based segmentation over
+  the splitmix64 hash of the keys (``group_ids_sorted``);
+* keys hash with splitmix64 in int64 (torch has no uint64 shift or
+  multiply): the bits equal ``kernels_np.splitmix64``'s uint64, so device
+  join probes meet host-hashed build keys and ``hash_bucket_dev`` buckets
+  rows as ``kernels_np.hash_partition_indices`` does;
 * segment sums and counts over at most ``MASKED_SEG_K`` groups go through the
   hand-written CUDA kernel ``grouped_sums`` (``ops/grouped_sums.py``): an
   aggregate stage gathers them in ``SegSums`` and makes one multi-column
@@ -27,6 +30,7 @@ the only host syncs are the ones ``to_host`` needs to size its fetch.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -72,6 +76,36 @@ def tdtype(np_dt) -> torch.dtype:
 def _fdiv(a, b):
     """Floor division (``jnp.floor_divide``); never truncation."""
     return torch.div(a, b, rounding_mode="floor")
+
+
+def _i64(u: int) -> int:
+    """The signed int64 holding the bits of the uint64 ``u``."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+# splitmix64's constants (kernels_np / kernels_jax hold them as uint64)
+_GOLDEN = _i64(0x9E3779B97F4A7C15)
+_C1 = _i64(0xBF58476D1CE4E5B9)
+_C2 = _i64(0x94D049BB133111EB)
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def splitmix64_dev(x: torch.Tensor) -> torch.Tensor:
+    """The splitmix64 finalizer over int64 holding uint64 bits: the adds and
+    multiplies wrap in two's complement, which leaves the low 64 bits of the
+    unsigned result, so the output bits equal ``kernels_np.splitmix64``'s."""
+    x = x.to(torch.int64)
+    x = x + _GOLDEN
+    x = x ^ _shr(x, 30)
+    x = x * _C1
+    x = x ^ _shr(x, 27)
+    x = x * _C2
+    x = x ^ _shr(x, 31)
+    return x
 
 
 def bucket_size(n: int, minimum: int = 8) -> int:
@@ -1446,8 +1480,9 @@ def group_plan(key_cols: list[DeviceCol], n_pad: int):
     """Static grouping strategy from trace-time metadata (dictionary sizes,
     encoded int ranges). Returns ``("direct", per_key)`` — cardinality
     provably small: mixed-radix ids, per_key = [(radix, base, lo)] (radix
-    includes a NULL slot) — or ``("sorted", k_bound)`` for sort-based
-    segmentation, which this port does not have yet."""
+    includes a NULL slot) — or ``("sorted", k_bound)``: sort-based
+    segmentation (``group_ids_sorted``) with k_bound output slots, fewer
+    than n_pad whenever the key ranges bound the cardinality below it."""
     per_key = []
     total = 1
     for c in key_cols:
@@ -1514,6 +1549,134 @@ def canonical_data(c: DeviceCol) -> torch.Tensor:
         return c.data
     return torch.where(c.null, torch.zeros((), dtype=c.data.dtype, device=c.data.device),
                        c.data)
+
+
+def group_ids_sorted(db: DeviceBatch, key_cols: list[DeviceCol], k: Optional[int] = None):
+    """Sort-based segmentation: int64 ids in [0, k) plus the first row
+    position of each segment (``n_pad`` for an empty one). Invalid rows, and
+    segments past ``k``, get id k (the trash segment). ``k`` defaults to
+    n_pad (always sound).
+
+    Rows order by the mixed key hash; a segment starts wherever any key
+    column changes, so a hash collision between adjacent distinct keys still
+    segments correctly. The JAX package sorts the uint64 ``hash >> 1`` with
+    invalid rows at 2^63, above every valid key; int64 has no such value,
+    so stable argsorts chain on the key and then the invalid flag, which
+    gives the same order."""
+    n_pad = db.n_pad
+    dev = db.device
+    if k is None:
+        k = n_pad
+    mixed = _zeros(n_pad, torch.int64, dev)
+    for c in key_cols:
+        canon = _canonical_dev(c)
+        if c.null is not None:
+            # NULL must sort apart from the canonical fill value (0 / "") or
+            # interleaved runs split the NULL group at every transition
+            canon = canon ^ torch.where(c.null, _NULL_MIX, 0)
+        mixed = splitmix64_dev(mixed ^ canon)
+    order = torch.argsort(_shr(mixed, 1), stable=True)
+    order = order[torch.argsort((~db.row_valid).to(torch.int32)[order], stable=True)]
+    first = _ones_bool(1, dev)
+    start = torch.cat([first, _zeros(n_pad - 1, torch.bool, dev)])
+    for c in key_cols:
+        # null slots may cover garbage data (join gathers): compare with
+        # nulls zeroed and segment on null-flag changes, so all NULL keys
+        # form one group (SQL GROUP BY semantics)
+        vs = canonical_data(c)[order]
+        start = start | torch.cat([first, vs[1:] != vs[:-1]])
+        if c.null is not None:
+            ns = c.null[order]
+            start = start | torch.cat([first, ns[1:] != ns[:-1]])
+    seg_sorted = torch.cumsum(start, 0) - 1
+    ids = _zeros(n_pad, torch.int64, dev).scatter_(0, order, seg_sorted)
+    ids = torch.where(db.row_valid & (ids < k), ids, k)
+    reps = torch.full((k + 1,), n_pad, dtype=torch.int64, device=dev).scatter_reduce(
+        0, ids, torch.arange(n_pad, device=dev), "amin", include_self=True)
+    return ids, reps[:k]
+
+
+# distinct odd constant mixed into per-row keys for NULL slots, so NULL never
+# collides with the canonical fill value (0 / "") during sort-based
+# segmentation; not used for bucketing (host parity there)
+_NULL_MIX = _i64(0xA5A5A5A5A5A5A5A5)
+
+# device copies of the pandas-hash LUTs of shared dictionaries, per
+# (dict_id, device): a stage gathers through them without copying again
+_HASH_LUTS: dict = {}
+
+
+@functools.cache
+def _empty_string_hash() -> int:
+    """The pandas hash of "", the host's fill for a NULL string."""
+    import pandas as pd
+
+    return int(pd.util.hash_array(np.array([""], object)).astype(np.int64)[0])
+
+
+def _hash_lut(c: DeviceCol, device) -> torch.Tensor:
+    """int64 pandas hash of each dictionary entry, on ``device``."""
+    if c.dict_id:
+        from ballista_tpu_torch.engine.dictionaries import REGISTRY
+
+        key = (c.dict_id, str(device))
+        lut = _HASH_LUTS.get(key)
+        if lut is not None and lut.shape[0] == len(c.dictionary):
+            return lut
+        host = REGISTRY.hash_lut(c.dict_id)
+        if host is not None and len(host) == len(c.dictionary):
+            if len(_HASH_LUTS) >= 1024:  # stale catalog versions
+                _HASH_LUTS.clear()
+            lut = _HASH_LUTS[key] = torch.from_numpy(host).to(device)
+            return lut
+    import pandas as pd
+
+    host = pd.util.hash_array(c.dictionary.astype(object)).astype(np.int64)
+    return torch.from_numpy(host).to(device)
+
+
+def _canonical_dev(c: DeviceCol) -> torch.Tensor:
+    """int64 canonical form matching ``kernels_np.canonical_int64``: SQL-equal
+    values map to equal ints across engines. NULL slots take the host's fill
+    value (0 / ""): device nulls may cover garbage data (join gathers,
+    masked arithmetic), and grouping and bucketing must not see it."""
+    dev = c.data.device
+    if c.is_string:
+        n = len(c.dictionary)
+        if n == 0:  # empty partition
+            return _zeros(c.data.shape[0], torch.int64, dev)
+        out = _hash_lut(c, dev)[torch.clamp(c.data, 0, n - 1).to(torch.int64)]
+        if c.null is not None:
+            out = torch.where(c.null, _empty_string_hash(), out)
+        return out
+    d = canonical_data(c)
+    if c.scale is not None:
+        # exact descale (see sniff_decimal): an elementwise division rounds
+        # correctly on every device, so these are the f64 bits the host
+        # hashed. The divisor is a full tensor: CUDA divides by a Python
+        # scalar as a multiply by its reciprocal, which can miss by an ulp
+        d = d.to(torch.float64)
+        d = d / torch.full_like(d, 10.0**c.scale)
+    elif not d.is_floating_point():
+        return d.to(torch.int64)
+    d64 = d.to(torch.float64)
+    return torch.where(d64 == 0.0, 0.0, d64).view(torch.int64)  # -0.0 as 0.0
+
+
+def _umod(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The uint64 held in ``x``'s bits, mod ``n``: u = 2 * (u >> 1) + (u & 1),
+    with every term non-negative (``remainder`` of a negative int64 would
+    take the signed value's residue)."""
+    return torch.remainder(2 * torch.remainder(_shr(x, 1), n) + (x & 1), n)
+
+
+def hash_bucket_dev(db: DeviceBatch, key_cols: list[DeviceCol], n: int) -> torch.Tensor:
+    """Shuffle bucket per row (int32); bit-identical to
+    ``kernels_np.hash_partition_indices``."""
+    mixed = _zeros(db.n_pad, torch.int64, db.device)
+    for c in key_cols:
+        mixed = splitmix64_dev(mixed ^ _canonical_dev(c))
+    return _umod(mixed, n).to(torch.int32)
 
 
 # ---- device sort / top-k -----------------------------------------------------------

@@ -1,8 +1,8 @@
 """TPC-H through the PyTorch port's torch engine, on the CPU.
 
-Rows are held against the pandas oracle (all 22 queries; nodes the port has
-not taken to the device yet run on its host kernels) and, for the device
-slice's queries, against the JAX engine too. Comparison is
+Rows are held against the pandas oracle (all 22 queries) and, for the device
+slice's queries, against the JAX engine too (``test_torch_joins.py`` holds
+all 22 against it). Comparison is
 ``assert_frames_match``: ints, strings, dates and decimals exact; floats
 (AVG, ratios) within rtol 1e-6, the oracle's own tolerance.
 """
@@ -80,13 +80,20 @@ def test_slice_runs_on_device_through_grouped_sums(tctx, kernel_calls, qname):
         assert m.get(key, 0.0) > 0, key
 
 
-def test_join_query_falls_back_to_host_kernels(tctx):
-    """Joins are not ported yet: q3's join runs on the host kernels and is
-    counted, while its aggregate stages still reach the device."""
-    tctx.sql(_sql("q3")).collect()
-    m = tctx.last_engine_metrics
-    assert m.get("op.HostFallback.count", 0.0) > 0
-    assert m.get("op.DeviceExecute.count", 0.0) > 0
+def test_join_query_falls_back_to_host_kernels(tctx, kernel_calls):
+    """The join queries q3 and q5 fall back to the host kernels nowhere: their
+    joins and aggregates run on the device, and q5's aggregate by n_name goes
+    through grouped_sums: k = 27 in the partial stages (the shared 26-entry
+    dictionary and the NULL slot the join's gather brings), 26 in the final
+    ones."""
+    for q in ("q3", "q5"):
+        kernel_calls.clear()
+        tctx.sql(_sql(q)).collect()
+        m = tctx.last_engine_metrics
+        assert m.get("op.HostFallback.count", 0.0) == 0.0, (q, m)
+        assert m.get("op.DeviceExecute.count", 0.0) > 0, q
+    assert kernel_calls and all(0 < k <= 32 for k, _ in kernel_calls)
+    assert {26, 27} <= {k for k, _ in kernel_calls}
 
 
 @pytest.mark.parametrize("qname", [f"q{i}" for i in range(1, 23)])
