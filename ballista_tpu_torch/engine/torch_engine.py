@@ -11,16 +11,29 @@ and probed on the device with ``searchsorted``. String dictionaries are host
 metadata — string predicates become lookup tables gathered by code on the
 device.
 
+As the JAX engine does on one chip, a final aggregate over a hash exchange
+of a partial aggregate runs as one fused device program (partial aggregate,
+exchange, final aggregate: ``engine/fused_exchange.py``), and so does a
+partitioned join over two exchanges whose build keys are unique; config
+``ballista.tpu.ici_shuffle=false`` turns both off. Leaf encodings and their
+device copies are cached across queries under content keys (scan files and
+their stamps, in-memory batch ids, the dtype policy; the device copies also
+under the engine's device), so a warm query re-reads no scan it has seen;
+``clear_caches()`` empties them. With ``ballista.tpu.min_device_rows`` set, a
+stage whose leaves hold fewer rows runs on the host kernels
+(``op.HostTinyStage.count``), a route the configuration chose and not a
+fallback.
+
 PyTorch runs eagerly, so a stage program is traced anew on every call: there
 is no compile cache, precompile or hint pipeline. Nodes outside
 ``_supported`` run on the host kernels, as the JAX engine's unsupported
 nodes do, and each such run adds to ``op.HostFallback.count``. Windows,
-streaming, leaf caches, the memory governor (and with it the paged join and
-the budgeted duplicate cap) and the fused and multi-device exchanges are not
-ported yet.
+streaming, the memory governor (and with it the paged join and the budgeted
+duplicate cap) and the multi-device exchange are not ported yet.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import replace
 from typing import Optional
@@ -28,7 +41,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ballista_tpu_torch.config import BALLISTA_TPU_NATIVE_DTYPES, BallistaConfig
+from ballista_tpu_torch.config import (
+    BALLISTA_TPU_FUSE_INPUT_MAX_ROWS, BALLISTA_TPU_ICI_SHUFFLE, BALLISTA_TPU_MIN_DEVICE_ROWS,
+    BALLISTA_TPU_NATIVE_DTYPES, BallistaConfig,
+)
 from ballista_tpu_torch.engine.numpy_engine import NumpyEngine
 from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.ops import kernels_np as KNP
@@ -41,6 +57,26 @@ from ballista_tpu_torch.plan.expr import (
     Not, unalias, walk,
 )
 from ballista_tpu_torch.plan.schema import DataType
+from ballista_tpu_torch.utils.cache import LoadingCache
+
+# module-level caches: hot leaf encodings (host) and their device copies
+# survive across queries and engines. Their keys name content (scan files
+# with their stamps, in-memory batch ids, the dtype policy), never object
+# ids; device keys also name the engine's device (_dev_key), so a CPU and a
+# CUDA engine in one process never share a tensor. On the CPU a cached
+# tensor shares memory with its cached host array, and on CUDA every later
+# query reads it: no stage may write a leaf tensor in place.
+_ENC_CACHE: LoadingCache = LoadingCache(
+    capacity=4 * 1024**3, weigher=lambda enc: sum(a.nbytes for a in enc.arrays)
+)
+_DEV_CACHE: LoadingCache = LoadingCache(
+    capacity=8 * 1024**3, weigher=lambda ts: sum(t.numel() * t.element_size() for t in ts)
+)
+
+
+def clear_caches() -> None:
+    _ENC_CACHE.clear()
+    _DEV_CACHE.clear()
 
 
 def resolve_device(device: Optional[str]) -> str:
@@ -86,6 +122,20 @@ class TorchEngine(NumpyEngine):
                  device: Optional[str] = None):
         super().__init__(config or BallistaConfig())
         self.device = torch.device(resolve_device(device))
+        # width of the fused exchange: the engine's one device (a wider
+        # world needs a process group, see parallel/__init__.py)
+        self.mesh_devices = 1
+        # fused-exchange results of this execution, keyed by the exchange's
+        # (or the join's) node id; None records a declined attempt
+        self._fused: dict[int, Optional[list]] = {}
+        # > 0 while a subtree runs on host kernels by choice (a tiny stage,
+        # or a fused input materialized on the host): no device stages, and
+        # no host fallbacks counted
+        self._host_only = 0
+        # the plan trees _host_tiny_stage rebuilt, kept alive for the
+        # execution so no later node reuses an id the materialization
+        # caches keyed on
+        self._tiny_keepalive: list = []
         # prepared join build sides, computed once per execution (see
         # _prepared_build)
         self._build_prep: dict[tuple, tuple] = {}
@@ -99,36 +149,40 @@ class TorchEngine(NumpyEngine):
         # numpy engine would only interleave launches
         self._apply_dtype_policy()
         self._cache.clear()
+        self._fused.clear()
+        self._tiny_keepalive.clear()
         self._build_prep.clear()
         return [self._exec(plan, i) for i in range(plan.output_partitions())]
 
     # ---- dispatch --------------------------------------------------------------
     def _exec(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
+        fused = self._try_fused_exchange(plan, part)
+        if fused is not None:
+            return fused
+        if self._host_only:
+            # fused exchanges still apply (above, and a partitioned join at
+            # the root of a host-only subtree); plain device stages do not
+            if _fusable_partitioned_join(plan):
+                fj = self._try_fused_join(plan, part)
+                if fj is not None:
+                    return fj
+            return super()._exec(plan, part)
         if not _supported(plan):
             return super()._exec(plan, part)
         try:
             return self._timed_stage(plan, part)
         except (_HostFallback, KT.DeviceUnsupported):
             pass  # a runtime shape the device path cannot express
-        if isinstance(plan, P.HashAggregateExec) and plan.mode == "partial":
-            # the input cannot join the aggregate in one program: materialize
-            # it (through its own device stages where it can) and aggregate
-            # on the device, as the JAX engine's fused exchange does with a
-            # partial aggregate's input
-            try:
-                return self._timed_stage(plan, part, own_leaf=plan.input)
-            except (_HostFallback, KT.DeviceUnsupported):
-                pass
         return super()._exec(plan, part)  # host kernels
 
-    def _timed_stage(self, plan: P.PhysicalPlan, part: int, own_leaf=None) -> ColumnBatch:
+    def _timed_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
         t0 = time.time()
-        out = self._run_stage(plan, part, own_leaf)
+        out = self._run_stage(plan, part)
         self._metric("op.CompiledStage.time_s", time.time() - t0)
         return out
 
     def _exec_inner(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
-        if isinstance(plan, _DEVICE_OPS):
+        if isinstance(plan, _DEVICE_OPS) and not self._host_only:
             self._metric("op.HostFallback.count", 1.0)
         return super()._exec_inner(plan, part)
 
@@ -140,9 +194,87 @@ class TorchEngine(NumpyEngine):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _dev_key(self, key: tuple) -> tuple:
+        """A device-cache key: the content key with this engine's device and
+        dtype policy."""
+        return (key, str(self.device), KT.NATIVE_DTYPES)
+
+    def _min_device_rows(self) -> int:
+        return int(self.config.get(BALLISTA_TPU_MIN_DEVICE_ROWS) or 0)
+
+    # ---- fused single-device exchange ------------------------------------------------
+    def _try_fused_exchange(self, plan: P.PhysicalPlan, part: int) -> Optional[ColumnBatch]:
+        """final-agg(Repartition(partial-agg(...))) as one device program:
+        the partial aggregate over the whole input, its states hash-exchanged
+        and merged by the final aggregate. None when the shape does not fit
+        (the materialized exchange runs instead)."""
+        if not (isinstance(plan, P.HashAggregateExec) and plan.mode == "final"):
+            return None
+        rep = plan.input
+        if not isinstance(rep, P.RepartitionExec) or not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
+            return None
+        partial = rep.input
+        if not (isinstance(partial, P.HashAggregateExec) and partial.mode == "partial"
+                and _supported(partial)) or self._fuse_over_cap(rep.est_rows):
+            return None
+        from ballista_tpu_torch.engine import fused_exchange as FX
+
+        return self._fused_part(
+            id(rep), part, "op.FusedIciExchange.count",
+            lambda coll: FX.run_fused_aggregate(self, plan, partial, self.mesh_devices, coll))
+
+    def _try_fused_join(self, plan: P.HashJoinExec, part: int) -> Optional[ColumnBatch]:
+        """A partitioned join over two exchanges as one device program (see
+        fused_exchange.run_fused_join)."""
+        if not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
+            return None
+        if self._fuse_over_cap(max(plan.left.est_rows, getattr(plan.right, "est_rows", 0))):
+            return None
+        from ballista_tpu_torch.engine import fused_exchange as FX
+
+        return self._fused_part(
+            id(plan), part, "op.FusedIciJoin.count",
+            lambda coll: FX.run_fused_join(self, plan, self.mesh_devices, coll))
+
+    def _fused_part(self, key: int, part: int, metric: str, run) -> Optional[ColumnBatch]:
+        """Partition ``part`` of a fused program's result, run once per
+        execution. A program that returns None declined by design (a zero-row
+        or over-cap input, repeated build keys, rows past an exchange's
+        capacity): ``op.FusedDeclined.count``. A stage the device cannot
+        express falls back as an unfused stage would; any other failure
+        raises."""
+        from ballista_tpu_torch.parallel import collective_for
+
+        if key not in self._fused:
+            collective = collective_for(self.mesh_devices)  # raises past one device
+            try:
+                self._fused[key] = run(collective)
+            except (_HostFallback, KT.DeviceUnsupported):
+                self._fused[key] = None
+            else:
+                if self._fused[key] is None:
+                    self._metric("op.FusedDeclined.count", 1.0)
+        result = self._fused[key]
+        if result is None:
+            return None
+        self._metric(metric, 1.0)
+        return result[part]
+
+    def _fuse_over_cap(self, est_rows: int) -> bool:
+        """A fused exchange concatenates and encodes its whole input: past
+        the cap the materialized exchange runs instead. Plan-time estimate;
+        the fused input's build re-checks the real count."""
+        cap = int(self.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
+        return bool(cap) and est_rows > cap
+
     # ---- the stage driver ----------------------------------------------------------
-    def _run_stage(self, plan: P.PhysicalPlan, part: int, own_leaf=None) -> ColumnBatch:
-        leaves = self._collect_leaves(plan, part, own_leaf)
+    def _run_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
+        leaves = self._collect_leaves(plan, part)
+        min_rows = self._min_device_rows()
+        if min_rows and leaves and sum(e.n_rows for _, e, _, _, _ in leaves.values()) < min_rows:
+            # every leaf is already on the host: a stage this small costs
+            # more in launches and copies than its host kernels take
+            return self._host_tiny_stage(plan, part, leaves)
         tensors = self._device_args(leaves)
         stage_fn, holder = _make_stage_fn(plan, _stage_layout(leaves))
 
@@ -150,12 +282,15 @@ class TorchEngine(NumpyEngine):
         out = stage_fn(*tensors)
         self._sync()
         dt = time.time() - t0
-        in_rows = float(sum(enc.n_rows for _, enc, _, _ in leaves.values()))
+        in_rows = float(sum(enc.n_rows for _, enc, _, _, _ in leaves.values()))
         self._metric("op.DeviceExecute.time_s", dt)
         self._metric("op.DeviceExecute.count", 1.0)
         self._metric("op.DeviceExecute.rows", in_rows)
 
         out_db = KT.device_batch_from_outputs(holder["meta"], list(out), 0)
+        return self._fetch(out_db)
+
+    def _fetch(self, out_db) -> ColumnBatch:
         t0 = time.time()
         batch = KT.to_host(out_db)
         self._metric("op.DeviceFetch.time_s", time.time() - t0)
@@ -166,59 +301,129 @@ class TorchEngine(NumpyEngine):
         )
         return batch
 
+    def _host_tiny_stage(self, plan: P.PhysicalPlan, part: int, leaves: dict) -> ColumnBatch:
+        """The stage on host kernels, each materialized leaf substituted into
+        the plan as a MemoryScanExec (nothing upstream runs again)."""
+
+        def scan_of(node: P.PhysicalPlan, enc) -> P.MemoryScanExec:
+            batch = KT.decode_encoded_batch(enc)
+            parts = [batch if i == part else ColumnBatch.empty(enc.schema)
+                     for i in range(max(node.output_partitions(), part + 1))]
+            return P.MemoryScanExec(parts, enc.schema, ephemeral=True)
+
+        # "out" leaves stand for the node; "build" and "cross" leaves for the
+        # join's right side. The batch at index ``part`` serves partitioned
+        # joins (partitions[part]) and collected ones (the concat of all)
+        subs = {node_id: (kind == "out", scan_of(node if kind == "out" else node.right, enc))
+                for node_id, (kind, enc, _x, _k, node) in leaves.items()}
+
+        def rebuild(node: P.PhysicalPlan) -> P.PhysicalPlan:
+            sub = subs.get(id(node))
+            if sub is not None and sub[0]:
+                return sub[1]
+            ch = node.children()
+            if not ch:
+                return node
+            return node.with_children(*[sub[1] if sub is not None and i == 1 else rebuild(c)
+                                        for i, c in enumerate(ch)])
+
+        self._metric("op.HostTinyStage.count", 1.0)
+        new_plan = rebuild(plan)
+        self._tiny_keepalive.append(new_plan)
+        # host-only for the whole substituted subtree: its children dispatch
+        # through self._exec, which must not start device stages again
+        self._host_only += 1
+        try:
+            return NumpyEngine._exec(self, new_plan, part)
+        finally:
+            self._host_only -= 1
+
     def _device_args(self, leaves: dict) -> list:
         """Every leaf array on the device, in the stage's parameter order (a
-        build leaf's sorted keys after its columns). The copies are issued
-        non-blocking from pinned memory and awaited together, so the
-        transfer time stays out of the execute time."""
-        t0 = time.time()
+        build leaf's sorted keys after its columns); leaves with a cache key
+        through the device cache."""
         out = []
-        nbytes = 0
-        for _kind, enc, extra, _node in leaves.values():
+        for _kind, enc, extra, cache_key, _node in leaves.values():
             arrays = enc.arrays if extra is None else enc.arrays + [extra[0]]
-            for a in arrays:
-                out.append(KT.host_to_device(a, self.device))
-                nbytes += a.nbytes
+            out.extend(self._cached_on_device(cache_key, arrays))
+        return out
+
+    def _cached_on_device(self, cache_key: Optional[tuple], arrays: list) -> list:
+        """``arrays`` on the device, read through the device cache under
+        ``cache_key`` unless it is None."""
+        if cache_key is None:
+            return self._to_device(arrays)
+        key = self._dev_key(cache_key)
+        cached = _DEV_CACHE.get_with(key, lambda: self._to_device(arrays))
+        if len(cached) != len(arrays):  # stale entry shape: reload
+            cached = self._to_device(arrays)
+            _DEV_CACHE.put(key, cached)
+        return cached
+
+    def _to_device(self, arrays: list) -> list:
+        """Host arrays on the device: the copies issued non-blocking from
+        pinned memory and awaited together, so the transfer time stays out
+        of the execute time."""
+        t0 = time.time()
+        out = [KT.host_to_device(a, self.device) for a in arrays]
         self._sync()
         self._metric("op.DeviceTransfer.time_s", time.time() - t0)
-        self._metric("op.DeviceTransfer.bytes", float(nbytes))
+        self._metric("op.DeviceTransfer.bytes", float(sum(a.nbytes for a in arrays)))
         return out
 
     # ---- leaf collection -------------------------------------------------------------
-    def _collect_leaves(self, plan: P.PhysicalPlan, part: int, own_leaf=None) -> dict:
+    def _collect_leaves(self, plan: P.PhysicalPlan, part: int) -> dict:
         """Walk the device subtree; materialize and encode its leaf inputs on
-        the host. Returns {id(node): (kind, EncodedBatch, extra, node)}:
+        the host. Returns {id(node): (kind, EncodedBatch, extra, cache key,
+        node)}:
 
-        * ``"out"`` — the node's own output (an unsupported subtree, or
-          ``own_leaf``, which runs as its own stages);
+        * ``"out"`` — the node's own output (an unsupported subtree, or a
+          fused exchange's result);
         * ``"build"`` — a hash join's prepared build side, ``extra`` its
           (sorted build keys, duplicate bucket);
         * ``"cross"`` — a cross join's one-row right side.
 
+        A scan leaf's encoding comes from the encode cache under its content
+        key (``_leaf_cache_key``), a build's device copy is cached under the
+        prepared batch's id, so it crosses to the device once per execution.
         Insertion order is the stage's parameter layout."""
         leaves: dict[int, tuple] = {}
 
         def visit(node: P.PhysicalPlan):
-            if node is own_leaf:
-                leaves[id(node)] = ("out", self._encode(self._exec(node, part)), None, node)
-                return
+            # a final aggregate over an exchange, or a partitioned join, may
+            # run as a fused program; its merged output is a leaf here
+            if isinstance(node, P.HashAggregateExec) and node.mode == "final":
+                fused = self._try_fused_exchange(node, part)
+                if fused is not None:
+                    leaves[id(node)] = ("out", self._encode(fused), None, None, node)
+                    return
             if isinstance(node, P.HashJoinExec) and _supported(node):
+                if _fusable_partitioned_join(node):
+                    fused = self._try_fused_join(node, part)
+                    if fused is not None:
+                        leaves[id(node)] = ("out", self._encode(fused), None, None, node)
+                        return
                 visit(node.left)
-                enc, bk, max_dup = self._prepared_build(node, part)
-                leaves[id(node)] = ("build", enc, (bk, max_dup), node)
+                enc, bk, max_dup, uid = self._prepared_build(node, part)
+                leaves[id(node)] = ("build", enc, (bk, max_dup), ("build", uid), node)
                 return
             if isinstance(node, P.CrossJoinExec) and _supported(node):
                 visit(node.left)
                 right = self._materialized_single(node.right)
                 if right.num_rows != 1:
                     raise _HostFallback(f"cross join right side of {right.num_rows} rows")
-                leaves[id(node)] = ("cross", self._encode(right), None, node)
+                leaves[id(node)] = ("cross", self._encode(right), None, None, node)
                 return
             if _supported(node):
                 for c in node.children():
                     visit(c)
                 return
-            leaves[id(node)] = ("out", self._encode(self._exec_child(node, part)), None, node)
+            key = _leaf_cache_key(node, part)
+            if key is None:
+                enc = self._encode(self._exec_child(node, part))
+            else:
+                enc = _ENC_CACHE.get_with(key, lambda: self._encode(self._exec_child(node, part)))
+            leaves[id(node)] = ("out", enc, None, key, node)
 
         visit(plan)
         return leaves
@@ -258,12 +463,51 @@ class TorchEngine(NumpyEngine):
         return NumpyEngine._exec(self, node, part)
 
 
+def _leaf_cache_key(node: P.PhysicalPlan, part: int) -> Optional[tuple]:
+    """The content key of a scan leaf's encoding, or None (not cacheable):
+    an in-memory partition by its batch id, a parquet partition by its files
+    with their sizes and modification times (a table rewritten in place
+    misses), the projection, the pushed filters and the shared dictionaries.
+    Carries the dtype policy: the encoding differs under it (scaled int64 vs
+    f64)."""
+    if isinstance(node, P.MemoryScanExec):
+        if not node.partitions or node.ephemeral:
+            return None  # single-use data: never cache
+        src = node.partitions[min(part, len(node.partitions) - 1)]
+        return ("mem", src.uid, tuple(node.projection or ()), KT.NATIVE_DTYPES)
+    if isinstance(node, P.ParquetScanExec):
+        files = tuple(node.file_groups[part]) if node.file_groups else ()
+        try:
+            stamps = tuple((os.stat(f).st_size, os.stat(f).st_mtime_ns) for f in files)
+        except OSError:
+            return None
+        # the shared dictionaries the scan's string columns carry: a table
+        # registered again mints new ids, even over the same files
+        dicts = tuple(sorted((node.dict_refs or {}).items()))
+        return ("pq", files, stamps, tuple(node.projection or ()),
+                tuple(repr(f) for f in node.filters), dicts, KT.NATIVE_DTYPES)
+    return None
+
+
+def _fusable_partitioned_join(node: P.PhysicalPlan) -> bool:
+    """A partitioned join over two exchanges: it may run as one fused
+    program, both sides exchanged on the join keys."""
+    return (
+        isinstance(node, P.HashJoinExec)
+        and _supported(node)
+        and not node.collect_build
+        and isinstance(node.left, P.RepartitionExec)
+        and isinstance(node.right, P.RepartitionExec)
+    )
+
+
 def _build_dup_cap(node: P.HashJoinExec) -> int:
     return MAX_BUILD_DUP if node.how in ("semi", "anti") else _BUILD_DUP_CEILING
 
 
 def _prep_build(build: ColumnBatch, node: P.HashJoinExec, dup_cap: int):
-    """(encoding, sorted int64 key hashes, duplicate bucket) of a build side:
+    """(encoding, sorted int64 key hashes, duplicate bucket, id of the sorted
+    batch: the device cache's key for its copy) of a build side:
     rows with a NULL key dropped (kept after the keyed rows for right and
     full joins), the rest ordered by ``kernels_np.combined_key``, whose bits
     the device's probe hash reproduces. Raises _HostFallback when a key's
@@ -290,7 +534,7 @@ def _prep_build(build: ColumnBatch, node: P.HashJoinExec, dup_cap: int):
     enc = KT.encode_host_batch(build_sorted)
     # a power-of-two bucket, as the JAX package rounds it for its compile cache
     dup = 1 if max_dup == 1 else KT.bucket_size(max_dup, minimum=2)
-    return enc, bk[order], dup
+    return enc, bk[order], dup, build_sorted.uid
 
 
 def _stage_layout(leaves: dict) -> dict:
@@ -299,7 +543,7 @@ def _stage_layout(leaves: dict) -> dict:
     keys."""
     slices = {}
     pos = 0
-    for node_id, (kind, enc, extra, _node) in leaves.items():
+    for node_id, (kind, enc, extra, _key, _node) in leaves.items():
         count = len(enc.arrays) + (0 if extra is None else 1)
         slices[node_id] = (pos, pos + count, kind, enc, None if extra is None else extra[1])
         pos += count

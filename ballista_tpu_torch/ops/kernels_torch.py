@@ -952,12 +952,13 @@ def _float_width(cols) -> torch.dtype:
 
 
 def _as_float(c: DeviceCol, ft: torch.dtype) -> torch.Tensor:
+    data = c.data.to(ft)
     if c.scale is not None:
-        # the divisor rounded to the working width first, as jnp's
-        # ``ft(10.0**scale)`` is
-        div = 10.0**c.scale if ft == torch.float64 else np.float32(10.0**c.scale).item()
-        return c.data.to(ft) / div
-    return c.data.to(ft)
+        # the divisor is a tensor of the working width, as jnp's
+        # ``ft(10.0**scale)`` is: CUDA divides by a Python scalar as a
+        # multiply by its reciprocal, which can miss by an ulp
+        return data / torch.full_like(data, 10.0**c.scale)
+    return data
 
 
 def _eb(c: DeviceCol) -> int:

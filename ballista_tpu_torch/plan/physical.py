@@ -118,6 +118,9 @@ class MemoryScanExec(PhysicalPlan):
     partitions: list[Any]  # list[ColumnBatch]
     mem_schema: Schema
     projection: Optional[list[str]] = None  # column pruning at the leaf
+    # single-use data (a tiny stage's substituted leaves): kept out of the
+    # torch engine's content-keyed leaf caches
+    ephemeral: bool = False
 
     def schema(self) -> Schema:
         if self.projection is None:

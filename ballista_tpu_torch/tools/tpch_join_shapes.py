@@ -54,9 +54,9 @@ def main() -> None:
         s[3] = max(s[3], build_dev.n_pad)
         return real_probe(plan, probe_db, build_dev, bk_sorted, max_dup)
 
-    def stage(self, plan, part, own_leaf=None):
+    def stage(self, plan, part):
         try:
-            return real_stage(self, plan, part, own_leaf)
+            return real_stage(self, plan, part)
         except (TE._HostFallback, TE.KT.DeviceUnsupported) as e:
             where = traceback.extract_tb(e.__traceback__)[-1]
             print(f"  host fallback: {type(plan).__name__} partition {part}, "

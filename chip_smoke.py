@@ -18,22 +18,34 @@ Phases, each of which passes or ends the run with a non-zero exit:
              own ``models/tpch.py``); the int64 splitmix64 and
              ``hash_bucket_dev`` on ``cuda`` bit-identical to ``kernels_np``
              (the host engine's shuffle bucketing) over SF1's orders.
-5. slice   — q1, q6, q3 and q5 through ``BallistaContext.standalone()`` on
-             ``cuda``, cold then warm (and once more under torch.profiler,
-             which also attributes device time to the join probe, sorted
-             grouping and segment sums), each held against an exact numpy
-             int64 reference computed from the parquet files (ints,
-             strings, dates and decimal sums exactly equal, AVG within 1e-6
+5. slice   — TPC-H through ``BallistaContext.standalone()`` on ``cuda``,
+             on four paths (``PATHS``): the default, fused path (q1, q6, q3,
+             q5, q12, cold then warm; a final aggregate over an exchange runs
+             as one fused program, its input cached on the device); q3 and
+             q5 with ``broadcast_rows_threshold=0`` (their joins partition
+             and fuse); q1, q3 and q5 with ``ici_shuffle=false`` after
+             ``clear_caches()`` (per-partition aggregate stages); q1 with
+             ``min_device_rows=32768`` (tiny stages on the host, as bench.py
+             sets it). Each run is held against an exact numpy int64
+             reference computed from the parquet files (ints, strings,
+             dates and decimal sums exactly equal, AVG within 1e-6
              relative) and the port's host engine, ``backend="numpy"``
-             (floats within 1e-6 relative: it sums decimals in f64). Each
-             query's launch count is zeroed just before its run and read
-             just after: grouped_sums must launch once per aggregate stage
-             of at most 32 groups (q1, q6 and q5 have such stages; q3's
-             group by order), and no operator may fall back to the host.
-             The (n, k, columns) shapes the stages gave grouped_sums are
-             recorded and the kernel checked at each.
+             (floats within 1e-6 relative: it sums decimals in f64), and to
+             the JAX engine's fused counts and declines (``FUSED``), the
+             device stages ``tests/test_torch_fused.py`` establishes, zero
+             host fallbacks, and one grouped_sums launch per aggregate stage
+             of at most 32 groups (launch counts zeroed just before each run
+             and read just after). Warm runs of q1, q3 and q5 on the default
+             path must encode nothing but the fused result and transfer
+             under 1% of their cold bytes. Default warm runs, and the
+             unfused runs, are profiled once more under torch.profiler
+             (device time inside the join probe, sorted grouping and
+             segment sums). The (n, k, columns) shapes the stages gave
+             grouped_sums are recorded and the kernel checked at each.
 6. timing  — grouped_sums at one column (2^21 rows, k = 12, int64), at
-             the largest and smallest stages of q1's warm run, and at a
+             the largest and smallest stages of q1's warm run (the fused
+             program's partial aggregate and final merge), at the largest
+             stage of its unfused run, and at a
              stage of 16 int64 columns at k = 32, which the wrapper splits
              into launches (L2 flushed before every call, CUDA events,
              device time only), beside
@@ -42,8 +54,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
              card could take (bytes over 3.35 TB/s), and the time of one
              one-element add_ (the least any launch takes here).
 
-It prints the kernels line and the nvidia-smi line before its last line, and
-ends with one JSON object naming the device. It imports nothing of JAX and
+It prints, per run, the wall, fused counts, cache hits and peak device
+memory, then the kernels line and the nvidia-smi line before its last line,
+and ends with one JSON object naming the device. It imports nothing of JAX and
 nothing of the JAX package.
 """
 from __future__ import annotations
@@ -61,10 +74,46 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(REPO, ".chip_smoke_data")
 SF = 1.0
 PARTS = 4  # parquet files per large table
-QUERIES = ("q1", "q6", "q3", "q5")
+QUERIES = ("q1", "q6", "q3", "q5", "q12")
 # the queries whose aggregates group into at most MASKED_SEG_K slots, so
 # grouped_sums must launch (q3 groups by order on the sorted path, k large)
-LAUNCHING = ("q1", "q6", "q5")
+LAUNCHING = ("q1", "q6", "q5", "q12")
+# the paths the slice drives, in order: (name, session settings, queries,
+# runs). The tiny path's fused input is cached by the default path's runs;
+# the unfused path starts from clear_caches()
+PATHS = (
+    ("default", {}, QUERIES, ("cold", "warm")),
+    ("threshold0", {"ballista.optimizer.broadcast_rows_threshold": "0"}, ("q3", "q5"),
+     ("cold", "warm")),
+    ("tiny", {"ballista.tpu.min_device_rows": "32768"}, ("q1",), ("once",)),
+    ("unfused", {"ballista.tpu.ici_shuffle": "false"}, ("q1", "q3", "q5"), ("cold",)),
+)
+FUSED_KEYS = ("op.FusedIciExchange.count", "op.FusedIciJoin.count", "op.FusedDeclined.count")
+# (path, query) -> FUSED_KEYS: the JAX engine's fused aggregates (one count
+# per output partition served, 16), fused joins and fused attempts that
+# returned None on the same plans, as tests/test_torch_fused.py holds them on
+# the CPU
+FUSED = {
+    ("default", "q1"): (16, 0, 0), ("default", "q6"): (0, 0, 0),
+    ("default", "q3"): (16, 0, 0), ("default", "q5"): (16, 0, 0),
+    ("threshold0", "q3"): (16, 32, 0),
+    ("unfused", "q1"): (0, 0, 0), ("unfused", "q3"): (0, 0, 0), ("unfused", "q5"): (0, 0, 0),
+    ("tiny", "q1"): (16, 0, 0),
+}
+# counts that depend on the scale factor, through the planner's row
+# estimates. q12's join is collected at SF 0.01 but partitioned at SF1, its
+# build the filtered lineitem, whose order keys repeat: both engines decline
+# it. At SF 0.01 the planner joins q5's customer with supplier on their
+# nation key, so two builds repeat keys and are declined (the CPU test); at
+# SF1 every q5 build is keyed on a primary key and all five joins fuse
+FUSED_BY_SF = {
+    ("default", "q12"): {0.01: (16, 0, 0), 1.0: (16, 0, 1)},
+    ("threshold0", "q5"): {0.01: (16, 64, 2), 1.0: (16, 80, 0)},
+}
+# the default path's queries whose fused input has a content key (no
+# exchange below it): their warm runs read it from the device cache
+CACHED = ("q1", "q3", "q5")
+SHUFFLE_PARTITIONS = 16
 # H100 SXM, NVIDIA's data sheet: HBM3 rate at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 
@@ -249,7 +298,7 @@ def _lookup(index: np.ndarray, keys: np.ndarray, fill) -> np.ndarray:
 
 
 def exact_reference(tables: dict) -> dict:
-    """q1, q6, q3 and q5 computed exactly, independently of the port: numpy
+    """q1, q6, q3, q5 and q12 computed exactly, independently of the port: numpy
     int64 sums of hundredths (revenue: price * (100 - discount), in units of
     10^-4) over the parquet files, joins as dense key lookups (every join
     key of q3 and q5 is a primary key on one side), converted to the
@@ -257,7 +306,8 @@ def exact_reference(tables: dict) -> dict:
     Returns {query: {column: list of values in ORDER BY order}}."""
     li = _read(tables, "lineitem", [
         "l_orderkey", "l_suppkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
-        "l_returnflag", "l_linestatus", "l_shipdate"])
+        "l_returnflag", "l_linestatus", "l_shipdate", "l_commitdate", "l_receiptdate",
+        "l_shipmode"])
     days = li["l_shipdate"]
     qty, price, disc, tax = (_hundredths(li[c]) for c in
                              ("l_quantity", "l_extendedprice", "l_discount", "l_tax"))
@@ -329,7 +379,24 @@ def exact_reference(tables: dict) -> dict:
     order = present[np.argsort(-by_nation[present], kind="stable")]
     q5 = {"n_name": [names[k] for k in order],
           "revenue": [int(by_nation[k]) / 10**4 for k in order]}
-    return {"q1": q1, "q6": q6, "q3": q3, "q5": q5}
+
+    # q12: lines by MAIL or SHIP received in 1994, committed before received
+    # and shipped before committed; per ship mode, the lines of urgent or
+    # high-priority orders and of the others
+    od12 = _read(tables, "orders", ["o_orderkey", "o_orderpriority"])
+    pri = _index(od12["o_orderkey"], od12["o_orderpriority"].astype(object), None)
+    recv, commit = li["l_receiptdate"], li["l_commitdate"]
+    m = (np.isin(li["l_shipmode"], ["MAIL", "SHIP"]) & (commit < recv) & (days < commit)
+         & (recv >= _day("1994-01-01")) & (recv < _day("1995-01-01")))
+    high = np.isin(pri[li["l_orderkey"][m]], ["1-URGENT", "2-HIGH"])
+    modes = li["l_shipmode"][m]
+    q12: dict = {"l_shipmode": [], "high_line_count": [], "low_line_count": []}
+    for mode in sorted(set(modes)):
+        sel = modes == mode
+        q12["l_shipmode"].append(mode)
+        q12["high_line_count"].append(int((high & sel).sum()))
+        q12["low_line_count"].append(int((~high & sel).sum()))
+    return {"q1": q1, "q6": q6, "q3": q3, "q5": q5, "q12": q12}
 
 
 # q1's sum_charge is a product of three 2-digit decimals (scale 6). At SF1
@@ -430,15 +497,21 @@ def run_counted(ctx, sql: str) -> dict:
     """One collect, with grouped_sums' launch count set to 0 just before
     it and read just after. Also records the shapes (n, k, columns, dtype)
     grouped_sums was given, each presum_safe call's (scale in, scale out),
-    and the aggregate stages whose group count k is in (0, MASKED_SEG_K],
-    the ones that launch it."""
+    the aggregate stages whose group count k is in (0, MASKED_SEG_K] (the
+    ones that launch it), the schema of every batch encoded for the device,
+    the leaf caches' hits and misses, and on the card the peak of device
+    memory allocated during the run (``torch.cuda.max_memory_allocated``,
+    cached inputs of earlier runs included) and what was allocated before."""
+    import ballista_tpu_torch.engine.torch_engine as TE
     import ballista_tpu_torch.ops.grouped_sums as GS
     import ballista_tpu_torch.ops.kernels_torch as KT
 
     shapes: dict = {}
     presums: list = []
+    encoded: list = []
     small_k = [0]
     real_gs, real_ps, real_compute = GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute
+    real_enc = KT.encode_host_batch
 
     def gs(vals, masks, ids, k):
         dtype = next((v.dtype for v in vals if v is not None), torch.int64)
@@ -455,35 +528,123 @@ def run_counted(ctx, sql: str) -> dict:
         small_k[0] += 0 < sums.k <= KT.MASKED_SEG_K
         return real_compute(sums)
 
+    def enc(batch, pad=None):
+        encoded.append(tuple(batch.schema.names))
+        return real_enc(batch, pad)
+
+    caches = (TE._ENC_CACHE, TE._DEV_CACHE)
+    before = [(c.hits, c.misses) for c in caches]
+    on_card = torch.cuda.is_available() and ctx.device.startswith("cuda")
     GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute = gs, ps, compute
+    KT.encode_host_batch = enc
     try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
         GS.launches = 0
         t0 = time.time()
         got = ctx.sql(sql).collect()
         wall = time.time() - t0
         launches = GS.launches
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
     finally:
         GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute = real_gs, real_ps, real_compute
+        KT.encode_host_batch = real_enc
+    hits = {name: (c.hits - h, c.misses - m)
+            for name, c, (h, m) in zip(("encode", "device"), caches, before)}
     return {"table": got, "wall": wall, "launches": launches, "shapes": shapes,
-            "presums": presums, "small_k_stages": small_k[0],
+            "presums": presums, "small_k_stages": small_k[0], "encoded": encoded,
+            "cache": hits, "peak_bytes": peak, "base_bytes": base,
             "metrics": dict(ctx.last_engine_metrics)}
 
 
-def run_slice(device: str, tables: dict, runs=("cold", "warm"), profile: bool = False):
-    """The slice's queries on the torch engine, each held against the exact
-    reference and the host engine. Returns {(query, run): run_counted's
-    record} and, with ``profile``, {query: profile_run's record} from one
-    more run under torch.profiler."""
+def _physical(ctx, sql: str):
+    from ballista_tpu_torch.plan.optimizer import optimize
+    from ballista_tpu_torch.plan.physical_planner import PhysicalPlanner
+    from ballista_tpu_torch.sql.parser import parse_sql
+    from ballista_tpu_torch.sql.planner import SqlPlanner
+
+    logical = SqlPlanner(ctx.catalog.schemas()).plan(parse_sql(sql))
+    return PhysicalPlanner(ctx.catalog, ctx.config).plan(optimize(logical, ctx.catalog))
+
+
+def expected_fused(path: str, q: str, sf: float) -> tuple:
+    by_sf = FUSED_BY_SF.get((path, q))
+    return by_sf[sf] if by_sf else FUSED[(path, q)]
+
+
+def expected_stages(path: str, q: str, run: str, parts: int):
+    """The device stages (``op.DeviceExecute.count``) of a run, where
+    tests/test_torch_fused.py establishes them: one fused program and the 16
+    stages above it, plus one stage per input file when the fused input is
+    built; q6 (a global aggregate, never fused) a partial stage per file and
+    one final; unfused q1 a partial stage per file and 16 final; the tiny
+    path only the fused program. None: at least one."""
+    if q == "q6":
+        return parts + 1
+    if path == "default" and q in CACHED and run == "warm":
+        return 1 + SHUFFLE_PARTITIONS
+    if path == "default" and q == "q1":
+        return parts + 1 + SHUFFLE_PARTITIONS
+    if path == "unfused" and q == "q1":
+        return parts + SHUFFLE_PARTITIONS
+    if path == "tiny":
+        return 1
+    return None
+
+
+def check_run(path: str, q: str, run: str, r: dict, parts: int, fused: tuple,
+              cold, final_schema) -> None:
+    """The run's counts against what the slice requires (see PATHS)."""
+    m = r["metrics"]
+    tag = f"{path} {q} {run}"
+    if m.get("op.HostFallback.count", 0.0) != 0.0:
+        raise AssertionError(f"{tag}: {m['op.HostFallback.count']:g} host fallbacks")
+    got = tuple(int(m.get(k, 0.0)) for k in FUSED_KEYS)
+    if got != fused:
+        raise AssertionError(f"{tag}: fused/joins/declined {got}, the JAX engine's {fused}")
+    stages = expected_stages(path, q, run, parts)
+    n = m.get("op.DeviceExecute.count", 0.0)
+    if (stages is not None and n != stages) or n < 1:
+        raise AssertionError(f"{tag}: {n:g} device stages, want {stages}")
+    # one launch per aggregate stage of at most MASKED_SEG_K groups
+    if r["launches"] != r["small_k_stages"]:
+        raise AssertionError(f"{tag}: {r['launches']} grouped_sums launches in "
+                             f"{r['small_k_stages']} aggregate stages of k <= 32")
+    if q in LAUNCHING and r["launches"] <= 0:
+        raise AssertionError(f"{tag}: grouped_sums never launched")
+    if path == "tiny" and m.get("op.HostTinyStage.count", 0.0) != SHUFFLE_PARTITIONS:
+        raise AssertionError(f"{tag}: {m.get('op.HostTinyStage.count', 0.0):g} tiny stages")
+    if path == "default" and q in CACHED and run == "warm":
+        # no scan output and no fused input encoded again: only the fused
+        # result, once per partition of the stage above it
+        if r["encoded"] != [final_schema] * SHUFFLE_PARTITIONS:
+            raise AssertionError(f"{tag}: encoded {sorted(set(r['encoded']))}")
+        sent, cold_sent = m["op.DeviceTransfer.bytes"], cold["metrics"]["op.DeviceTransfer.bytes"]
+        if not sent < 0.01 * cold_sent:
+            raise AssertionError(f"{tag}: transferred {sent:g} bytes, cold {cold_sent:g}")
+
+
+def run_slice(device: str, tables: dict, sf: float, parts: int, tag: str,
+              profile: bool = False):
+    """The slice's paths on the torch engine, every run held against the
+    exact reference and the host engine and checked by check_run (its
+    summary printed first, tagged ``tag``). Returns
+    {(path, query, run): run_counted's record} and, with ``profile``,
+    {(path, query): profile_run's record} for the default path's warm runs
+    and the unfused runs."""
     from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import torch_engine as TE
+    from ballista_tpu_torch.plan import physical as P
 
     t0 = time.time()
     exact = exact_reference(tables)
     print(f"exact reference: {time.time() - t0:.1f} s", flush=True)
     host = BallistaContext.standalone(backend="numpy")
-    ctx = BallistaContext.standalone(device=device)
-    for c in (host, ctx):
-        for name, path in tables.items():
-            c.register_parquet(name, path)
+    for name, path in tables.items():
+        host.register_parquet(name, path)
     want = {}
     for q in QUERIES:
         with open(os.path.join(REPO, "benchmarks", "queries", f"{q}.sql")) as f:
@@ -492,25 +653,32 @@ def run_slice(device: str, tables: dict, runs=("cold", "warm"), profile: bool = 
         want[q] = (sql, host.sql(sql).collect())
         print(f"{q} host engine: {time.time() - t0:.3f} s", flush=True)
 
-    out = {}
-    for q in QUERIES:
-        sql, expect = want[q]
-        for run in runs:
-            r = run_counted(ctx, sql)
-            check_result(r["table"], expect, exact[q], q, r["presums"])
-            m = r["metrics"]
-            if m.get("op.HostFallback.count", 0.0) != 0.0:
-                raise AssertionError(f"{q}: {m['op.HostFallback.count']:g} host fallbacks")
-            if m.get("op.DeviceExecute.count", 0.0) < 2:
-                raise AssertionError(f"{q}: device stages {m.get('op.DeviceExecute.count')}")
-            # one launch per aggregate stage of at most MASKED_SEG_K groups
-            if r["launches"] != r["small_k_stages"]:
-                raise AssertionError(f"{q} {run}: {r['launches']} grouped_sums launches in "
-                                     f"{r['small_k_stages']} aggregate stages of k <= 32")
-            if q in LAUNCHING and r["launches"] <= 0:
-                raise AssertionError(f"{q} {run}: grouped_sums never launched")
-            out[(q, run)] = r
-    prof = {q: profile_run(ctx, want[q][0]) for q in QUERIES} if profile else {}
+    TE.clear_caches()
+    out, prof = {}, {}
+    for path, settings, queries, runs in PATHS:
+        ctx = BallistaContext.standalone(BallistaConfig(dict(settings)), device=device)
+        for name, location in tables.items():
+            ctx.register_parquet(name, location)
+        if path == "unfused":
+            TE.clear_caches()
+        for q in queries:
+            sql, expect = want[q]
+            fused = expected_fused(path, q, sf)
+            plan = _physical(ctx, sql)
+            finals = [n for n in P.walk_physical(plan)
+                      if isinstance(n, P.HashAggregateExec) and n.mode == "final"]
+            final_schema = tuple(finals[0].schema().names) if finals else None
+            joins = [n._line() for n in P.walk_physical(plan) if isinstance(n, P.HashJoinExec)]
+            print(f"{path} {q}: joins {joins}", flush=True)
+            for run in runs:
+                r = run_counted(ctx, sql)
+                report_run(path, q, run, r, tag)
+                check_result(r["table"], expect, exact[q], q, r["presums"])
+                check_run(path, q, run, r, parts, fused, out.get((path, q, "cold")),
+                          final_schema)
+                out[(path, q, run)] = r
+            if profile and path in ("default", "unfused"):
+                prof[(path, q)] = profile_run(ctx, sql)
     return out, prof
 
 
@@ -604,9 +772,49 @@ def time_grouped_sums(ids, vals, masks, k: int) -> dict:
             "share_of_bound": bound_ms / ms, "read_ms": read_ms}
 
 
-def rehearse(data_dir: str) -> None:
+def main_runs(results: dict) -> dict:
+    """Each (path, query)'s main run: its warm run where it has one, else its
+    one run. Its launch count was zeroed just before it and read just after."""
+    out = {}
+    for (path, q, run), r in results.items():
+        if run == "warm" or (path, q, "warm") not in results:
+            out[f"{path}/{q}"] = r
+    return out
+
+
+def report_run(path: str, q: str, run: str, r: dict, card: str) -> None:
+    m = r["metrics"]
+    fused = {k.split(".")[1]: m.get(k, 0.0) for k in FUSED_KEYS}
+    print(f"{path} {q} {run}: wall {r['wall']:.3f} s, device stages "
+          f"{m.get('op.DeviceExecute.count', 0.0):g}, grouped_sums launches "
+          f"{r['launches']} (aggregate stages of k <= 32: {r['small_k_stages']}), "
+          f"fused {fused}, tiny stages {m.get('op.HostTinyStage.count', 0.0):g}, "
+          f"host fallbacks {m.get('op.HostFallback.count', 0.0):g}, cache (hits, misses) "
+          f"{r['cache']}, batches encoded {len(r['encoded'])}, peak device memory "
+          f"{r['peak_bytes'] / 1e6:.1f} MB ({r['base_bytes'] / 1e6:.1f} MB allocated "
+          f"before the run) [{card}]", flush=True)
+
+
+def report_runs(results: dict, prof: dict, card: str) -> None:
+    for (path, q, run), r in results.items():
+        print(f"{path} {q} {run}, all operator metrics: {r['metrics']}", flush=True)
+        if run in ("warm", "once") or path == "unfused":
+            print(f"{path} {q} {run}, grouped_sums shapes (n, k, columns, dtype): calls "
+                  f"{ {str(s): c for s, c in r['shapes'].items()} }; presum_safe scales "
+                  f"(in, out): {sorted(set(r['presums']), key=str)}", flush=True)
+    for (path, q), p in prof.items():
+        regions = {k: f"{v * 1e3:.3f} ms = {100 * v / max(p['busy'], 1e-12):.1f}% of busy"
+                   for k, v in p["regions"].items() if v}
+        print(f"{path} {q} profiled run: device busy {p['busy'] * 1e3:.3f} ms = "
+              f"{100 * p['busy'] / p['wall']:.2f}% of that run's wall {p['wall']:.3f} s; "
+              f"busiest (name, calls, ms): {p['top']}; kernels inside {regions} [{card}]",
+              flush=True)
+
+
+def rehearse(data_dir: str, parts: int = 2) -> None:
     """The hash and slice phases on the CPU over the TPC-H tables under
-    ``data_dir`` (the tests' SF 0.01: ``tests/.data/torch_tpch_sf001``):
+    ``data_dir`` (the tests' SF 0.01, ``parts`` files per large table:
+    ``tests/.data/torch_tpch_sf001``):
 
         PYTHONPATH=. python3 -c "import chip_smoke as cs; cs.rehearse('tests/.data/torch_tpch_sf001')"
 
@@ -625,16 +833,16 @@ def rehearse(data_dir: str) -> None:
     GS.grouped_sums_multi = counted
     try:
         check_hash_buckets("cpu", tables)
-        results, _ = run_slice("cpu", tables)
+        results, _ = run_slice("cpu", tables, 0.01, parts, "cpu")
     finally:
         GS.grouped_sums_multi = real
-    for (q, run), r in results.items():
-        print(f"{q} {run}: wall {r['wall']:.3f} s, device stages "
-              f"{r['metrics'].get('op.DeviceExecute.count', 0.0):g}, grouped_sums calls "
-              f"{r['launches']}", flush=True)
+    report_runs(results, {}, "cpu")
+    print(f"grouped_sums calls by path: "
+          f"{ {k: r['launches'] for k, r in main_runs(results).items()} }", flush=True)
 
 
 def main() -> int:
+    started = time.time()
     phase("device")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -668,33 +876,16 @@ def main() -> int:
     check_hash_buckets("cuda", tables)
 
     phase("slice")
-    results, prof = run_slice("cuda", tables, profile=True)
-    for (q, run), r in results.items():
-        m = r["metrics"]
-        dev = {k: round(v, 6) for k, v in sorted(m.items()) if k.startswith("op.Device")}
-        print(f"{q} {run}: wall {r['wall']:.3f} s, device stages "
-              f"{m.get('op.DeviceExecute.count', 0.0):g}, grouped_sums launches "
-              f"{r['launches']} (aggregate stages of k <= 32: {r['small_k_stages']}), "
-              f"host fallbacks {m.get('op.HostFallback.count', 0.0):g}, {dev} [{card}]",
-              flush=True)
-        if run == "warm":
-            print(f"{q} warm, all operator metrics: {m}", flush=True)
-            print(f"{q} warm, grouped_sums shapes (n, k, columns, dtype): calls "
-                  f"{ {str(s): c for s, c in r['shapes'].items()} }; presum_safe scales "
-                  f"(in, out): {sorted(set(r['presums']), key=str)}", flush=True)
-    for q, p in prof.items():
-        regions = {k: f"{v * 1e3:.3f} ms = {100 * v / max(p['busy'], 1e-12):.1f}% of busy"
-                   for k, v in p["regions"].items() if v}
-        print(f"{q} profiled run: device busy {p['busy'] * 1e3:.3f} ms = "
-              f"{100 * p['busy'] / p['wall']:.2f}% of that run's wall {p['wall']:.3f} s; "
-              f"busiest (name, calls, ms): {p['top']}; kernels inside {regions} [{card}]",
-              flush=True)
-    # the main path: each query's warm run, its count zeroed just before it
-    by_path = {q: results[(q, "warm")]["launches"] for q in QUERIES}
-    print(f"grouped_sums launches on the main path, by query: {by_path}", flush=True)
+    t0 = time.time()
+    results, prof = run_slice("cuda", tables, SF, PARTS, card, profile=True)
+    print(f"slice phase {time.time() - t0:.1f} s", flush=True)
+    report_runs(results, prof, card)
+    mains = main_runs(results)
+    by_path = {k: r["launches"] for k, r in mains.items()}
+    print(f"grouped_sums launches on each path's main run: {by_path}", flush=True)
     shapes: dict = {}
-    for q in QUERIES:
-        for s, c in results[(q, "warm")]["shapes"].items():
+    for r in results.values():
+        for s, c in r["shapes"].items():
             shapes[s] = shapes.get(s, 0) + c
     # the kernel against its plain version at every shape the slice gave it
     for i, (n, k, ncols, dtype) in enumerate(sorted(shapes, key=lambda s: s[:3])):
@@ -712,13 +903,17 @@ def main() -> int:
     # (a) one column at (2^21, 12, int64), the one-column kernel's shape
     ids, valid, ivals, _ = grouped_sums_inputs(1 << 21, 12, 7, "cuda")
     timed = {"one_column": time_grouped_sums(ids, [ivals], [valid], 12)}
-    # (b) the largest and (c) the smallest stage of q1's warm run
-    q1_shapes = results[("q1", "warm")]["shapes"]
-    for label, pick in (("q1_stage", max), ("q1_final_stage", min)):
-        n, k, ncols, dtype = pick(q1_shapes, key=lambda s: (s[0], s[2]))
+    # (b) the largest and (c) the smallest stage of q1's warm run: the fused
+    # program's partial aggregate and final merge; (d) the largest stage of
+    # q1's unfused run, the partial stage of the unfused path
+    picks = (("q1_stage", ("default", "q1", "warm"), max),
+             ("q1_final_stage", ("default", "q1", "warm"), min),
+             ("q1_unfused_stage", ("unfused", "q1", "cold"), max))
+    for label, run, pick in picks:
+        n, k, ncols, dtype = pick(results[run]["shapes"], key=lambda s: (s[0], s[2]))
         ids, vals, valid = stage_inputs(n, k, ncols, 8, "cuda", dtype=dtype)
         timed[label] = time_grouped_sums(ids, vals, [valid] * ncols, k)
-    # (d) a stage wider than one launch takes at k = 32 (not on q1's path)
+    # (e) a stage wider than one launch takes at k = 32 (not on q1's path)
     ids, vals, valid = stage_inputs(1 << 21, 32, 16, 9, "cuda")
     timed["wide_k32"] = time_grouped_sums(ids, vals, [valid] * 16, 32)
     for label, t in timed.items():
@@ -729,6 +924,8 @@ def main() -> int:
               f"({t['bytes']} bytes), {100 * t['share_of_bound']:.1f}% of bound [{card}]",
               flush=True)
     stage = timed["q1_stage"]
+    print(f"chip_smoke: {time.time() - started:.1f} s from start to the kernels line [{card}]",
+          flush=True)
 
     kernels = [{
         "name": "grouped_sums", "route": "cuda",

@@ -190,6 +190,7 @@ def test_wide_aggregate_on_card_matches_cpu(card, tmp_path):
     44 int64 columns, which the wrapper splits into launches. Rows equal the
     port's CPU run (AVG within 1e-6 relative, the rest exact)."""
     from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.models.tpch import generate_tpch
     from ballista_tpu_torch.ops import grouped_sums as GS
 
@@ -199,8 +200,10 @@ def test_wide_aggregate_on_card_matches_cpu(card, tmp_path):
     aggs += ["sum(l_extendedprice) as s0", "sum(l_discount) as s1", "count(*) as n"]
     sql = (f"select l_returnflag, l_linestatus, {', '.join(aggs)} from lineitem "
            "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus")
-    on_card = BallistaContext.standalone()
-    on_cpu = BallistaContext.standalone(device="cpu")
+    # the unfused path: 16 final aggregate stages, each split
+    unfused = BallistaConfig({"ballista.tpu.ici_shuffle": "false"})
+    on_card = BallistaContext.standalone(unfused)
+    on_cpu = BallistaContext.standalone(unfused, device="cpu")
     for c in (on_card, on_cpu):
         c.register_parquet("lineitem", lineitem)
     GS.launches = 0
@@ -212,27 +215,109 @@ def test_wide_aggregate_on_card_matches_cpu(card, tmp_path):
 
 
 def test_q1_q6_on_card_match_cpu(card, tmp_path):
-    """At SF 0.01 in 2 files, one launch per aggregate stage: q1 2 partial +
-    16 final = 18, q6 2 partial + 1 final = 3."""
+    """At SF 0.01 in 2 files, one launch per aggregate stage. The fused path
+    (the default): q1's one program 2 (partial and final), cold and warm;
+    q6 (a global aggregate, not fused) 2 partial + 1 final = 3. With
+    ``ici_shuffle=false``: q1 2 partial + 16 final = 18."""
     from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.models.tpch import generate_tpch
     from ballista_tpu_torch.ops import grouped_sums as GS
 
     lineitem = generate_tpch(str(tmp_path), sf=0.01, tables=["lineitem"],
                              parts_per_table=2)["lineitem"]
     on_card = BallistaContext.standalone()
+    unfused = BallistaContext.standalone(BallistaConfig({"ballista.tpu.ici_shuffle": "false"}))
     on_cpu = BallistaContext.standalone(device="cpu")
-    for c in (on_card, on_cpu):
+    for c in (on_card, unfused, on_cpu):
         c.register_parquet("lineitem", lineitem)
-    for q, launches in (("q1", 18), ("q6", 3)):
+    for ctx, q, launches in ((on_card, "q1", 2), (on_card, "q1", 2), (on_card, "q6", 3),
+                             (unfused, "q1", 18)):
         with open(os.path.join(REPO, "benchmarks", "queries", f"{q}.sql")) as f:
             sql = f.read()
         GS.launches = 0
-        got = on_card.sql(sql).collect()
+        got = ctx.sql(sql).collect()
         assert GS.launches == launches, q
-        assert on_card.last_engine_metrics.get("op.HostFallback.count", 0.0) == 0.0
+        assert ctx.last_engine_metrics.get("op.HostFallback.count", 0.0) == 0.0
         _assert_rows_match(got, on_cpu.sql(sql).collect(),
                            {n for n in got.column_names if n.startswith("avg")})
+
+
+@pytest.mark.parametrize("scale", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("ft", [torch.float32, torch.float64])
+def test_as_float_on_card_bit_identical_to_cpu(card, scale, ft):
+    """Scaled int64 to float on the card: the same bits as on the CPU (which
+    the CPU tests hold to the JAX package's ``_as_float``); a division by a
+    Python scalar would be a multiply by its reciprocal here."""
+    from ballista_tpu_torch.ops import kernels_torch as KT
+
+    rng = np.random.default_rng(40 + scale)
+    data = torch.from_numpy(rng.integers(-(10**15), 10**15, 1 << 20).astype(np.int64))
+    col = lambda t: KT.DeviceCol(KT.DataType.FLOAT64, t, scale=scale)  # noqa: E731
+    got = KT._as_float(col(data.to(card)), ft).cpu()
+    want = KT._as_float(col(data), ft)
+    assert got.dtype == want.dtype == ft
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.fixture(scope="module")
+def sf001_tables(tmp_path_factory):
+    from ballista_tpu_torch.models.tpch import generate_tpch
+
+    return generate_tpch(str(tmp_path_factory.getbasetemp() / "tpch_sf001"), sf=0.01,
+                         parts_per_table=2)
+
+
+@pytest.mark.parametrize("q", ["q1", "q5"])
+def test_fused_queries_on_card_match_cpu(card, sf001_tables, q):
+    """The fused exchange on the card (its final aggregate over 16
+    partitions as one program), cold and warm, against the CPU run; the
+    warm run reads its input from the device cache."""
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.engine import torch_engine as TE
+
+    on_card = BallistaContext.standalone()
+    on_cpu = BallistaContext.standalone(device="cpu")
+    for c in (on_card, on_cpu):
+        for t, path in sf001_tables.items():
+            c.register_parquet(t, path)
+    with open(os.path.join(REPO, "benchmarks", "queries", f"{q}.sql")) as f:
+        sql = f.read()
+    want = on_cpu.sql(sql).collect()
+    TE.clear_caches()
+    sent = []
+    for _run in ("cold", "warm"):
+        got = on_card.sql(sql).collect()
+        m = on_card.last_engine_metrics
+        assert m.get("op.FusedIciExchange.count", 0.0) == 16.0
+        assert m.get("op.HostFallback.count", 0.0) == 0.0
+        sent.append(m["op.DeviceTransfer.bytes"])
+        _assert_rows_match(got, want, {n for n in got.column_names if n.startswith("avg")})
+    assert sent[1] < 0.01 * sent[0]
+
+
+def test_cpu_and_cuda_engines_share_no_cache_entry(card, sf001_tables):
+    """q1 and q3 on a CPU engine and a CUDA engine in one process: every
+    device-cache entry names one device and holds tensors on it only."""
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.engine import torch_engine as TE
+
+    TE.clear_caches()
+    ctxs = {"cpu": BallistaContext.standalone(device="cpu"), "cuda": BallistaContext.standalone()}
+    for c in ctxs.values():
+        for t, path in sf001_tables.items():
+            c.register_parquet(t, path)
+    for q in ("q1", "q3"):
+        with open(os.path.join(REPO, "benchmarks", "queries", f"{q}.sql")) as f:
+            sql = f.read()
+        for c in ctxs.values():
+            c.sql(sql).collect()
+    seen = set()
+    for key, tensors in TE._DEV_CACHE._entries.items():
+        device = torch.device(key[1])
+        assert all(t.device.type == device.type for t in tensors), key
+        seen.add(device.type)
+    assert seen == {"cpu", "cuda"}
 
 
 # ---- joins and hashing on the card --------------------------------------------------

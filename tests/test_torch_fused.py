@@ -1,0 +1,469 @@
+"""The port's fused single-device exchange, its leaf caches and tiny-stage
+dispatch, against the JAX package, on the CPU.
+
+* ``parallel/ici.make_hash_exchange`` against the JAX package's exchange
+  under ``shard_map`` on the same inputs (from a numpy seed): at one device,
+  and at four, where one thread per device and an in-process transpose
+  stand in for the collective. Outputs, validity and ``dropped`` bit for bit.
+* TPC-H on ``device="cpu"`` against the JAX engine over a one-device mesh
+  (``mesh_devices = 1``) and the oracle: rows equal (floats within rtol
+  1e-6, the oracle's tolerance), and the fused counts, the fused attempts
+  that returned None, and the operator kinds run on host kernels equal the
+  JAX engine's.
+* The content-keyed leaf caches: a warm run encodes no scan output and no
+  fused input, and transfers under 1% of its cold bytes.
+* Tiny-stage dispatch: all 22 queries with ``min_device_rows`` far above
+  SF 0.01, against the oracle and the JAX engine's host operators.
+"""
+import os
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+import torch
+from jax.sharding import PartitionSpec as PS
+
+from ballista_tpu.client.context import BallistaContext as JaxContext
+from ballista_tpu.engine import fused_exchange as JFX
+from ballista_tpu.models.tpch import TPCH_TABLES
+from ballista_tpu.ops import kernels_jax as KJ
+from ballista_tpu.parallel import ici as JICI
+from ballista_tpu.parallel import shard_map
+from ballista_tpu.parallel.mesh import build_mesh
+from ballista_tpu_torch.client.context import BallistaContext
+from ballista_tpu_torch.config import BallistaConfig
+from ballista_tpu_torch.engine import torch_engine as TE
+from ballista_tpu_torch.errors import ExecutionError
+from ballista_tpu_torch.ops import grouped_sums as GS
+from ballista_tpu_torch.ops import kernels_torch as KT
+from ballista_tpu_torch.parallel.ici import make_hash_exchange
+from ballista_tpu_torch.plan import physical as P
+
+from test_torch_data import torch_oracle_tables, torch_tpch_dir  # noqa: F401
+from test_torch_joins import _cold_leaf_caches, _host_ops
+from test_tpch_numpy import ORDERED, assert_frames_match
+from tpch_oracle import ORACLES
+
+QUERIES = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "queries")
+
+
+def _sql(qname: str) -> str:
+    with open(os.path.join(QUERIES, f"{qname}.sql")) as f:
+        return f.read()
+
+
+# ---- the exchange ------------------------------------------------------------------------
+def _exchange_inputs(n: int, seed: int):
+    """Keys with repeats and one hot key (a third of the rows), a second
+    int32 key, an f64 and a bool payload; ~20% invalid rows."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(-50, 50, n).astype(np.int64)
+    k[rng.random(n) < 0.33] = 7
+    arrays = {
+        "k": k,
+        "s": rng.integers(0, 5, n).astype(np.int32),
+        "v": rng.standard_normal(n),
+        "b": rng.random(n) < 0.5,
+    }
+    return arrays, rng.random(n) < 0.8
+
+
+def _jax_exchange(arrays, valid, n_dev, cap_factor, keys):
+    mesh = build_mesh(n_dev)
+    axis = mesh.axis_names[0]
+    ex = JICI.make_hash_exchange(axis, n_dev, cap_factor)
+
+    def body(arrs, v):
+        out, got_valid, dropped = ex(arrs, v, keys)
+        return out, got_valid, dropped.reshape(1)
+
+    spec = {name: PS(axis) for name in arrays}
+    fn = jax.jit(shard_map(body, mesh=mesh, in_specs=(spec, PS(axis)),
+                           out_specs=(spec, PS(axis), PS(axis))))
+    out, got_valid, dropped = fn({k: jnp.asarray(a) for k, a in arrays.items()},
+                                 jnp.asarray(valid))
+    return ({k: np.asarray(a) for k, a in out.items()}, np.asarray(got_valid),
+            np.asarray(dropped))
+
+
+class _ThreadWorld:
+    """An in-process world of ``n_dev`` devices, one thread each:
+    ``all_to_all`` transposes the devices' send buffers, ``all_sum`` adds a
+    scalar over them."""
+
+    def __init__(self, n_dev: int):
+        self.n_dev = n_dev
+        self.barrier = threading.Barrier(n_dev)
+        self.slots = [None] * n_dev
+
+    def rank(self, r: int):
+        world = self
+
+        class Rank:
+            def _gather(self, x):
+                world.slots[r] = x
+                world.barrier.wait()
+                got = list(world.slots)
+                world.barrier.wait()
+                return got
+
+            def all_to_all(self, buf):
+                return torch.stack([peer[r] for peer in self._gather(buf)])
+
+            def all_sum(self, x):
+                return sum(self._gather(x))
+
+        return Rank()
+
+
+def _torch_exchange(arrays, valid, n_dev, cap_factor, keys):
+    """The port's exchange run per device on contiguous shards (as
+    ``shard_map`` splits them); outputs concatenated in device order."""
+    n = len(valid) // n_dev
+    world = _ThreadWorld(n_dev)
+    results = [None] * n_dev
+    errors = []
+
+    def run(r):
+        try:
+            ex = make_hash_exchange(n_dev, cap_factor, collective=world.rank(r))
+            shard = {k: torch.from_numpy(a[r * n:(r + 1) * n]) for k, a in arrays.items()}
+            results[r] = ex(shard, torch.from_numpy(valid[r * n:(r + 1) * n]), keys)
+        except Exception as e:  # noqa: BLE001 - re-raised below, on the test thread
+            errors.append(e)
+            world.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n_dev)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    out = {k: np.concatenate([res[0][k].numpy() for res in results]) for k in arrays}
+    return (out, np.concatenate([res[1].numpy() for res in results]),
+            np.array([int(res[2]) for res in results]))
+
+
+@pytest.mark.parametrize("keys", [("k",), ("k", "s")], ids=["one-key", "two-keys"])
+@pytest.mark.parametrize("n_dev,cap_factor", [(1, 0), (1, 4), (4, 0), (4, 1), (4, 4)])
+def test_hash_exchange_bit_identical_to_jax(n_dev, cap_factor, keys):
+    """Every received row in the same slot with the same bits, the same
+    validity and the same dropped count; at four devices with cap_factor 1
+    the hot key overflows its peer (dropped > 0)."""
+    arrays, valid = _exchange_inputs(4 * 256, seed=n_dev * 10 + cap_factor)
+    want, want_valid, want_dropped = _jax_exchange(arrays, valid, n_dev, cap_factor, keys)
+    got, got_valid, got_dropped = _torch_exchange(arrays, valid, n_dev, cap_factor, keys)
+    assert np.array_equal(got_valid, want_valid)
+    for k in arrays:
+        assert got[k].dtype == want[k].dtype, k
+        assert np.array_equal(got[k][got_valid].view(np.uint8),
+                              want[k][want_valid].view(np.uint8)), k
+    assert np.array_equal(got_dropped, want_dropped)
+    assert (int(got_dropped[0]) > 0) == (n_dev == 4 and cap_factor == 1)
+    assert int(got_valid.sum()) == int(valid.sum()) - int(got_dropped[0])
+
+
+def test_more_than_one_device_raises_without_a_process_group(torch_tpch_dir):
+    ctx = BallistaContext.standalone(device="cpu")
+    ctx.register_parquet("lineitem", os.path.join(torch_tpch_dir, "lineitem"))
+    engine = TE.TorchEngine(ctx.config, device="cpu")
+    engine.mesh_devices = 2
+    ctx._get_engine = lambda: engine
+    with pytest.raises(ExecutionError, match="process group"):
+        ctx.sql(_sql("q1")).collect()
+    with pytest.raises(ExecutionError, match="process group"):
+        make_hash_exchange(2)
+
+
+# ---- TPC-H against the JAX engine ------------------------------------------------------
+def _contexts(data, threshold):
+    t = BallistaContext.standalone(device="cpu")
+    j = JaxContext.standalone(backend="jax")
+    for c in (t, j):
+        c.config.set("ballista.optimizer.broadcast_rows_threshold", threshold)
+        for name in TPCH_TABLES:
+            c.register_parquet(name, os.path.join(data, name))
+    make = j._get_engine
+
+    def one_device():
+        engine = make()
+        engine.mesh_devices = 1
+        return engine
+
+    j._get_engine = one_device
+    return t, j
+
+
+@pytest.fixture(scope="module")
+def ctxs(torch_tpch_dir):
+    """(torch, jax) contexts at the planner's broadcast threshold and at 0,
+    where every join partitions."""
+    return {500_000: _contexts(torch_tpch_dir, 500_000), 0: _contexts(torch_tpch_dir, 0)}
+
+
+@pytest.fixture
+def jax_declines(monkeypatch):
+    """The JAX engine's fused attempts that returned None."""
+    count = [0]
+    for name in ("run_fused_aggregate", "run_fused_join"):
+        real = getattr(JFX, name)
+
+        def counting(*a, _real=real, **kw):
+            out = _real(*a, **kw)
+            count[0] += out is None
+            return out
+
+        monkeypatch.setattr(JFX, name, counting)
+    return count
+
+
+FUSED_KEYS = ("op.FusedIciExchange.count", "op.FusedIciJoin.count")
+
+
+@pytest.mark.parametrize("qname,threshold", [
+    ("q1", 500_000), ("q3", 500_000), ("q4", 500_000), ("q5", 500_000), ("q6", 500_000),
+    ("q12", 500_000), ("q3", 0), ("q5", 0),
+])
+def test_fused_tpch_matches_jax_engine(ctxs, torch_oracle_tables, jax_declines, qname,
+                                       threshold):
+    """At the default threshold q1, q3, q4, q5 and q12 fuse their final
+    aggregate (16 partitions), q6 (a global aggregate) nothing; at threshold
+    0 q3 also fuses its 2 partitioned joins and q5 4 of its joins, while q5
+    declines 2 (their build keys repeat)."""
+    tctx, jctx = ctxs[threshold]
+    _cold_leaf_caches()
+    got = tctx.sql(_sql(qname)).collect().to_pandas()
+    tm = dict(tctx.last_engine_metrics)
+    want = jctx.sql(_sql(qname)).collect().to_pandas()
+    jm = jctx.last_engine_metrics
+    ordered = qname in ORDERED
+    assert_frames_match(got, want, ordered, f"{qname} vs jax")
+    assert_frames_match(got, ORACLES[qname](torch_oracle_tables), ordered, qname)
+    for key in FUSED_KEYS:
+        assert tm.get(key, 0.0) == jm.get(key, 0.0), key
+    assert tm.get("op.FusedDeclined.count", 0.0) == jax_declines[0]
+    assert _host_ops(tm) == _host_ops(jm)
+    assert tm.get("op.HostFallback.count", 0.0) == 0.0
+    assert (tm.get("op.FusedIciExchange.count", 0.0) > 0) == (qname != "q6")
+
+
+# q1's fused input at SF 0.01: its filtered lineitem rows, padded
+FUSED_Q1_PAD = 1 << 16
+
+
+def test_fused_q1_is_one_program_with_two_grouped_sums_calls(ctxs, monkeypatch):
+    """q1 warm: the fused program (its partial aggregate over the whole
+    2-file input, one grouped_sums call; the final merge, one more) and the
+    16 sort stages above it; cold also runs the input's 2 filter stages."""
+    tctx, _ = ctxs[500_000]
+    calls = []
+    real = GS.grouped_sums_multi
+
+    def counting(vals, masks, ids, k):
+        calls.append((int(ids.shape[0]), k, len(vals)))
+        return real(vals, masks, ids, k)
+
+    monkeypatch.setattr(GS, "grouped_sums_multi", counting)
+    TE.clear_caches()
+    stages = []
+    for _run in ("cold", "warm"):
+        calls.clear()
+        tctx.sql(_sql("q1")).collect()
+        stages.append(tctx.last_engine_metrics["op.DeviceExecute.count"])
+        # the partial aggregate over the whole input's pad, the final merge
+        # over the exchanged states: the 16-row pad of the k = 12 direct ids
+        assert [(n, k) for n, k, _c in calls] == [(FUSED_Q1_PAD, 12), (16, 12)], calls
+    assert stages == [2 + 1 + 16, 1 + 16]
+
+
+def test_unfused_q22_aggregates_on_the_host_as_the_jax_engine_does(torch_tpch_dir,
+                                                                    torch_oracle_tables):
+    """With ``ici_shuffle=false``, q22's partial aggregate sits in a stage
+    with its anti join, whose build keys repeat past 32: the stage falls
+    back on both engines, aggregate included (the fused path aggregates its
+    input on the device instead, as the JAX engine's does)."""
+    tctx, jctx = _contexts(torch_tpch_dir, 500_000)
+    for c in (tctx, jctx):
+        c.config.set("ballista.tpu.ici_shuffle", False)
+    _cold_leaf_caches()
+    got = tctx.sql(_sql("q22")).collect().to_pandas()
+    jctx.sql(_sql("q22")).collect()
+    assert_frames_match(got, ORACLES["q22"](torch_oracle_tables), True, "q22")
+    assert "HashAggregateExec" in _host_ops(tctx.last_engine_metrics)
+    assert _host_ops(tctx.last_engine_metrics) == _host_ops(jctx.last_engine_metrics)
+
+
+# ---- the leaf caches ---------------------------------------------------------------------
+def _final_agg_schema(ctx, qname):
+    from ballista_tpu_torch.plan.optimizer import optimize
+    from ballista_tpu_torch.plan.physical_planner import PhysicalPlanner
+    from ballista_tpu_torch.sql.parser import parse_sql
+    from ballista_tpu_torch.sql.planner import SqlPlanner
+
+    plan = SqlPlanner(ctx.catalog.schemas()).plan(parse_sql(_sql(qname)))
+    phys = PhysicalPlanner(ctx.catalog, ctx.config).plan(optimize(plan, ctx.catalog))
+    finals = [n for n in P.walk_physical(phys)
+              if isinstance(n, P.HashAggregateExec) and n.mode == "final"]
+    assert len(finals) == 1
+    return tuple(finals[0].schema().names)
+
+
+@pytest.mark.parametrize("qname", ["q1", "q3", "q5"])
+def test_warm_run_encodes_no_input_again(ctxs, monkeypatch, qname):
+    """After a cold run, a warm run encodes only what the fused exchange
+    hands to the stages above it (the final aggregate's rows, one batch per
+    partition), runs only the fused program and the 16 stages above it, and
+    transfers under 1% of the cold run's bytes; after ``clear_caches()`` the
+    run is cold again."""
+    tctx, _ = ctxs[500_000]
+    encoded = []
+    real = KT.encode_host_batch
+
+    def recording(batch, pad=None):
+        encoded.append(tuple(batch.schema.names))
+        return real(batch, pad)
+
+    monkeypatch.setattr(KT, "encode_host_batch", recording)
+    final = _final_agg_schema(tctx, qname)
+    sent, encodes, stages = [], [], []
+    for _run in ("cold", "warm", "cleared"):
+        if _run != "warm":
+            TE.clear_caches()
+        encoded.clear()
+        tctx.sql(_sql(qname)).collect()
+        sent.append(tctx.last_engine_metrics["op.DeviceTransfer.bytes"])
+        stages.append(tctx.last_engine_metrics["op.DeviceExecute.count"])
+        encodes.append(list(encoded))
+    cold, warm, cleared = encodes
+    assert warm == [final] * 16
+    assert stages[1] == 1 + 16 and stages[0] == stages[2] > stages[1]
+    assert any(s != final for s in cold) and sorted(cleared) == sorted(cold)
+    assert sent[1] < 0.01 * sent[0] and sent[2] == sent[0]
+
+
+def _write_table(path, values):
+    """Two parquet files under ``path`` (so the group-by runs as partial
+    and final aggregates over an exchange, the fused shape)."""
+    os.makedirs(path, exist_ok=True)
+    half = len(values) // 2
+    for i, part in enumerate((values[:half], values[half:])):
+        pq.write_table(pa.table({"g": pa.array([v % 3 for v in part], pa.int64()),
+                                 "x": pa.array(part, pa.int64())}),
+                       os.path.join(path, f"part-{i}.parquet"))
+
+
+GROUP_SQL = "select g, sum(x) as s, count(*) as n from t group by g order by g"
+
+
+def test_table_registered_again_misses_the_cache(tmp_path):
+    """A parquet file rewritten in place and registered again, and an
+    in-memory table registered again under the same name: the next run
+    reads the new rows, not the cached encoding."""
+    path = str(tmp_path / "t")
+    _write_table(path, list(range(100)))
+    ctx = BallistaContext.standalone(device="cpu")
+    ctx.register_parquet("t", path)
+    first = ctx.sql(GROUP_SQL).collect().column("s").to_pylist()
+    assert ctx.sql(GROUP_SQL).collect().column("s").to_pylist() == first  # warm
+    _write_table(path, list(range(100, 250)))
+    ctx.register_parquet("t", path)
+    second = ctx.sql(GROUP_SQL).collect().column("s").to_pylist()
+    assert second == [sum(v for v in range(100, 250) if v % 3 == g) for g in range(3)]
+
+    for lo, hi in ((0, 40), (40, 90)):
+        values = list(range(lo, hi))
+        ctx.register_arrow("t", pa.table({"g": pa.array([v % 3 for v in values], pa.int64()),
+                                          "x": pa.array(values, pa.int64())}), partitions=2)
+        got = ctx.sql(GROUP_SQL).collect().column("s").to_pylist()
+        assert got == [sum(v for v in values if v % 3 == g) for g in range(3)]
+
+
+def _fused_pins():
+    return [k for k in TE._DEV_CACHE._pinned if k[0][0] == "fused_dev"]
+
+
+def test_pin_device_cache_pins_and_unpins_on_reregistration(tmp_path):
+    """``ballista.tpu.pin_device_cache`` pins the fused input's device copy;
+    a table registered again with new content moves the one pin to the new
+    copy and drops the old; with pinning off the pin is released."""
+    TE.clear_caches()
+    path = str(tmp_path / "t")
+    _write_table(path, list(range(60)))
+    ctx = BallistaContext.standalone(
+        BallistaConfig({"ballista.tpu.pin_device_cache": "true"}), device="cpu")
+    ctx.register_parquet("t", path)
+    ctx.sql(GROUP_SQL).collect()
+    first = _fused_pins()
+    assert len(first) == 1 and first[0][1] == "cpu"
+    _write_table(path, list(range(60, 200)))
+    ctx.register_parquet("t", path)
+    ctx.sql(GROUP_SQL).collect()
+    second = _fused_pins()
+    assert len(second) == 1 and second != first
+    assert TE._DEV_CACHE.get(first[0]) is None  # the old content's copy is gone
+    ctx.config.set("ballista.tpu.pin_device_cache", False)
+    ctx.sql(GROUP_SQL).collect()
+    assert _fused_pins() == []
+
+
+def test_device_cache_keys_name_the_device_and_ephemeral_scans_have_none(torch_tpch_dir):
+    ctx = BallistaContext.standalone(device="cpu")
+    ctx.register_parquet("lineitem", os.path.join(torch_tpch_dir, "lineitem"))
+    ctx.sql(_sql("q6")).collect()
+    keys = list(TE._DEV_CACHE._entries)
+    assert keys and all(k[1] == "cpu" for k in keys)
+    batch = TE.ColumnBatch.from_arrow(pa.table({"a": [1, 2]}))
+    scan = P.MemoryScanExec([batch], batch.schema)
+    assert TE._leaf_cache_key(scan, 0) is not None
+    scan.ephemeral = True
+    assert TE._leaf_cache_key(scan, 0) is None
+
+
+# ---- tiny-stage dispatch -------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def tiny_ctxs(torch_tpch_dir):
+    t, j = _contexts(torch_tpch_dir, 500_000)
+    for c in (t, j):
+        c.config.set("ballista.tpu.min_device_rows", 10_000_000)
+    return t, j
+
+
+# queries whose stages fall back before the tiny check: q22's anti join, whose
+# build keys repeat past 32, is prepared (and refused) before it, on both engines
+FALLS_BACK_BEFORE_TINY = {"q22"}
+
+
+@pytest.mark.parametrize("qname", [f"q{i}" for i in range(1, 23)])
+def test_tpch_with_tiny_dispatch(tiny_ctxs, torch_oracle_tables, qname):
+    tctx, jctx = tiny_ctxs
+    _cold_leaf_caches()
+    got = tctx.sql(_sql(qname)).collect().to_pandas()
+    tm = dict(tctx.last_engine_metrics)
+    assert_frames_match(got, ORACLES[qname](torch_oracle_tables), qname in ORDERED, qname)
+    jctx.sql(_sql(qname)).collect()
+    jm = jctx.last_engine_metrics
+    assert tm.get("op.HostTinyStage.count", 0.0) > 0
+    assert tm["op.HostTinyStage.count"] == jm["op.HostTinyStage.count"]
+    assert _host_ops(tm) == _host_ops(jm)
+    assert (tm.get("op.HostFallback.count", 0.0) > 0) == (qname in FALLS_BACK_BEFORE_TINY)
+
+
+# ---- decimal to float ---------------------------------------------------------------------
+@pytest.mark.parametrize("scale", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("ft", ["float32", "float64"])
+def test_as_float_matches_kernels_jax(scale, ft):
+    """Scaled int64 to float divides by the divisor rounded to the working
+    width: bit for bit the JAX package's ``_as_float``."""
+    rng = np.random.default_rng(scale)
+    data = rng.integers(-(10**12), 10**12, 100_000).astype(np.int64)
+    got = KT._as_float(KT.DeviceCol(KT.DataType.FLOAT64, torch.from_numpy(data), scale=scale),
+                       getattr(torch, ft))
+    want = KJ._as_float(KJ.DeviceCol(KJ.DataType.FLOAT64, jnp.asarray(data), scale=scale),
+                        getattr(jnp, ft))
+    assert got.numpy().dtype == np.asarray(want).dtype
+    assert np.array_equal(got.numpy().view(np.uint8), np.asarray(want).view(np.uint8))

@@ -320,15 +320,19 @@ def test_wide_stage_matches_kernels_jax(pallas_on):
 @pytest.mark.parametrize("qname,stages,partial_cols", [("q1", 18, 8), ("q6", 3, 2)])
 def test_one_grouped_sums_call_per_device_aggregate_stage(torch_tpch_dir, qname, stages,
                                                           partial_cols):
-    """At SF 0.01 in 2 files: q1 runs 2 partial and 16 final aggregate stages,
-    q6 2 partial and 1 final. Each makes one call; q1's partial stage carries
-    its 7 sums and one count (its 9 counts over the same mask merged)."""
+    """At SF 0.01 in 2 files, with the fused exchange off: q1 runs 2 partial
+    and 16 final aggregate stages, q6 2 partial and 1 final. Each makes one
+    call; q1's partial stage carries its 7 sums and one count (its 9 counts
+    over the same mask merged). (``tests/test_torch_fused.py`` counts the
+    fused path's calls.)"""
     import os
 
     from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.models.tpch import TPCH_TABLES
 
-    ctx = BallistaContext.standalone(device="cpu")
+    ctx = BallistaContext.standalone(BallistaConfig({"ballista.tpu.ici_shuffle": "false"}),
+                                     device="cpu")
     for t in TPCH_TABLES:
         ctx.register_parquet(t, os.path.join(torch_tpch_dir, t))
     calls = []

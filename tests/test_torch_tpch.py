@@ -13,6 +13,7 @@ import pytest
 from ballista_tpu.client.context import BallistaContext as JaxContext
 from ballista_tpu.models.tpch import TPCH_TABLES
 from ballista_tpu_torch.client.context import BallistaContext
+from ballista_tpu_torch.config import BallistaConfig
 
 from test_torch_data import torch_oracle_tables, torch_tpch_dir  # noqa: F401
 from test_tpch_numpy import ORDERED, assert_frames_match
@@ -80,20 +81,27 @@ def test_slice_runs_on_device_through_grouped_sums(tctx, kernel_calls, qname):
         assert m.get(key, 0.0) > 0, key
 
 
-def test_join_query_falls_back_to_host_kernels(tctx, kernel_calls):
+def test_join_query_falls_back_to_host_kernels(tctx, torch_tpch_dir, kernel_calls):
     """The join queries q3 and q5 fall back to the host kernels nowhere: their
     joins and aggregates run on the device, and q5's aggregate by n_name goes
-    through grouped_sums: k = 27 in the partial stages (the shared 26-entry
-    dictionary and the NULL slot the join's gather brings), 26 in the final
-    ones."""
-    for q in ("q3", "q5"):
+    through grouped_sums. With the fused exchange off, k = 27 in the partial
+    stages (the shared 26-entry dictionary and the NULL slot the join's
+    gather brings), 26 in the final ones; the fused program aggregates the
+    join's fetched output, which has no NULL slot: k = 26 in both."""
+    unfused = BallistaContext.standalone(BallistaConfig({"ballista.tpu.ici_shuffle": "false"}),
+                                         device="cpu")
+    for t in TPCH_TABLES:
+        unfused.register_parquet(t, os.path.join(torch_tpch_dir, t))
+    for ctx, want, not_want in ((tctx, {26}, {27}), (unfused, {26, 27}, set())):
         kernel_calls.clear()
-        tctx.sql(_sql(q)).collect()
-        m = tctx.last_engine_metrics
-        assert m.get("op.HostFallback.count", 0.0) == 0.0, (q, m)
-        assert m.get("op.DeviceExecute.count", 0.0) > 0, q
-    assert kernel_calls and all(0 < k <= 32 for k, _ in kernel_calls)
-    assert {26, 27} <= {k for k, _ in kernel_calls}
+        for q in ("q3", "q5"):
+            ctx.sql(_sql(q)).collect()
+            m = ctx.last_engine_metrics
+            assert m.get("op.HostFallback.count", 0.0) == 0.0, (q, m)
+            assert m.get("op.DeviceExecute.count", 0.0) > 0, q
+        assert kernel_calls and all(0 < k <= 32 for k, _ in kernel_calls)
+        ks = {k for k, _ in kernel_calls}
+        assert want <= ks and not ks & not_want, ks
 
 
 @pytest.mark.parametrize("qname", [f"q{i}" for i in range(1, 23)])
