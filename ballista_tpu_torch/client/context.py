@@ -4,9 +4,12 @@ Reference analog: ``BallistaContext::standalone``
 (``arrow-ballista: ballista/client/src/context.rs:85-475``): DDL (CREATE
 EXTERNAL TABLE / SHOW TABLES / DROP) is handled client-side against the local
 table registry; queries plan locally and execute in-process on the torch
-engine's device (or on the host engine with ``backend="numpy"``). Remote
-contexts, the serving caches, the memory governor, EXPLAIN VERIFY/ANALYZE and
-span collection are not ported yet.
+engine's device (or on the host engine with ``backend="numpy"``). Before a
+plan runs, the memory governor (``engine/memory_model.py``) sizes its
+exchanges to the device budget, flags the joins no width fits as paged, and
+refuses a plan nothing fits (``PlanVerificationError``, rule PV007). Remote
+contexts, the serving caches, the rest of the plan verifier, EXPLAIN
+VERIFY/ANALYZE and span collection are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ import pyarrow as pa
 
 from ballista_tpu_torch.client.catalog import Catalog
 from ballista_tpu_torch.config import BallistaConfig
-from ballista_tpu_torch.errors import BallistaError, PlanningError, SqlError
+from ballista_tpu_torch.errors import (
+    BallistaError, PlanningError, PlanVerificationError, SqlError,
+)
 from ballista_tpu_torch.ops.batch import ColumnBatch
 from ballista_tpu_torch.plan.logical import LogicalPlan
 from ballista_tpu_torch.plan.optimizer import optimize
@@ -242,6 +247,11 @@ class BallistaContext:
         self.catalog = Catalog(config=self.config)
         # per-operator metrics of the last query (filled by _execute_plan)
         self.last_engine_metrics: dict = {}
+        # the memory governor's mitigations of the last query, as PV007
+        # warnings, and its report (memory_model.MemoryReport, or None when
+        # no budget applied)
+        self.last_warnings: list[str] = []
+        self.last_memory_report = None
         # reference: plugin_manager.rs scans the configured dir at startup;
         # entry-point UDFs load unconditionally so pip-installed plugins are
         # visible to every process that parses SQL
@@ -350,8 +360,10 @@ class BallistaContext:
 
     # ---- execution ------------------------------------------------------------------
     def _execute_plan(self, plan: LogicalPlan) -> pa.Table:
+        self.last_warnings = []
+        self.last_memory_report = None
         optimized = optimize(plan, self.catalog)
-        physical = PhysicalPlanner(self.catalog, self.config).plan(optimized)
+        physical = self._govern(PhysicalPlanner(self.catalog, self.config).plan(optimized))
         engine = self._get_engine()
         batches = engine.execute_all(physical)
         # per-query operator metrics for callers (device accounting) — the
@@ -362,6 +374,35 @@ class BallistaContext:
         if not tables:
             tables = [ColumnBatch.empty(out_schema).to_arrow()]
         return pa.concat_tables(tables)
+
+    def _govern(self, physical):
+        """The memory governor over the plan about to run: its mitigations
+        (repartitioned, paged) become PV007 warnings in ``last_warnings``; a
+        plan no mitigation fits raises ``PlanVerificationError`` with the
+        governor's messages (the JAX package's ``verify_memory`` rule)."""
+        from ballista_tpu_torch.engine.memory_model import govern_with_config
+
+        physical, report = govern_with_config(
+            physical, self.config, 1, detected_budget_bytes=self._detected_budget(),
+            device=self.device)
+        self.last_memory_report = report
+        if report is not None:
+            rejected = [("PV007", d.operator, d.message) for d in report.rejections()]
+            if rejected:
+                raise PlanVerificationError(rejected)
+            self.last_warnings.extend(f"[PV007] {d.operator}: {d.message}"
+                                      for d in report.mitigations())
+        return physical
+
+    def _detected_budget(self):
+        """What the governor's budget resolution may auto-detect from: None
+        lets it probe this context's card, which only a torch engine on
+        ``cuda`` may do. A host engine (``backend="numpy"``) and a torch
+        engine on the CPU use no card budget and get 0 (detection off; an
+        explicit ``ballista.engine.hbm_budget_bytes`` still applies)."""
+        on_card = self.backend == "torch" and self.device is not None \
+            and self.device.startswith("cuda")
+        return None if on_card else 0
 
     def _get_engine(self):
         from ballista_tpu_torch.engine.engine import create_engine

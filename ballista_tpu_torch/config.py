@@ -13,9 +13,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 from ballista_tpu_torch.errors import ConfigError
-# ceiling on hash-exchange partition counts (the JAX package keeps it beside
-# its device mesh; the port has no mesh yet)
-MAX_SHUFFLE_PARTITIONS = 4096
+from ballista_tpu_torch.parallel.mesh import MAX_SHUFFLE_PARTITIONS
 
 # session config keys (reference: core/src/config.rs:30-48)
 BALLISTA_JOB_NAME = "ballista.job.name"
@@ -249,31 +247,30 @@ _ENTRIES: dict[str, _Entry] = {
         ),
         _Entry(
             BALLISTA_ENGINE_HBM_BUDGET_BYTES,
-            "per-chip device-memory budget the HBM governor plans stage "
+            "device-memory budget the memory governor plans stage "
             "programs against: partition counts are solved so every "
-            "per-partition program fits, joins no count can fit run the "
-            "paged device join tier, and plans no mitigation fits are "
-            "REJECTED at admission with a PV007 finding. 0 = auto-detect "
-            "from the device (memory_stats bytes_limit, or 16 GB on TPU, "
-            "scaled by a 0.85 headroom fraction; 0 on CPU backends = "
-            "governor off); negative disables the governor outright",
+            "per-partition program fits, joins no count can fit run as "
+            "paged joins, and plans no mitigation fits are REJECTED at "
+            "admission with a PV007 finding. 0 = 0.85 of the card's memory "
+            "(torch.cuda.mem_get_info) for a torch engine on cuda, none for "
+            "a CPU engine or the host engine (governor off); negative "
+            "disables the governor outright",
             int,
             0,
         ),
         _Entry(
             BALLISTA_ENGINE_PAGED_JOIN,
-            "paged device join tier: a join whose program exceeds the HBM "
+            "paged device join: a join whose program exceeds the device "
             "budget even at max partitioning runs as build/probe-partitioned "
-            "passes over device-resident chunks (Grace-style hash-bucketed "
-            "spill, same machinery as the k-way aggregate spill) instead of "
-            "being rejected",
+            "passes, each a device join over one pair of hash buckets "
+            "spilled to disk, instead of being rejected",
             _bool,
             True,
         ),
         _Entry(
             BALLISTA_ENGINE_PAGED_JOIN_THRESHOLD,
             "engine-side paging trigger: a join stage pages when its "
-            "trace-time program estimate exceeds this fraction of the HBM "
+            "trace-time program estimate exceeds this fraction of the device "
             "budget (safety net under the admission-time governor, which "
             "plans from row estimates)",
             float,

@@ -2,8 +2,8 @@
 
 The port of ``ballista_tpu/engine/jax_engine.py``. Whole-stage execution:
 the device-supported subtree of a stage (filter, project, hash aggregate,
-sort, hash join, cross join) runs as one PyTorch program over tensors on the
-engine's device, with power-of-two row buckets and validity masks. Host work
+sort, hash join, cross join, window) runs as one PyTorch program over tensors
+on the engine's device, with power-of-two row buckets and validity masks. Host work
 is confined to the leaves: scans and unsupported children materialize
 host-side (numpy kernels), are encoded, and enter the program as tensors. A
 hash join's build side is sorted by key hash on the host once per execution
@@ -24,12 +24,22 @@ stage whose leaves hold fewer rows runs on the host kernels
 (``op.HostTinyStage.count``), a route the configuration chose and not a
 fallback.
 
+The memory governor (``engine/memory_model.py``) gives a CUDA engine a
+device budget: ``ballista.engine.hbm_budget_bytes``, or 0.85 of the card's
+memory when that is 0 (a CPU engine has none). A stage whose estimate from
+its real leaves exceeds the budget pages its widest partitioned join: both
+sides are hash-split into buckets on disk and joined one bucket pair at a
+time (``op.PagedJoin.count``, ``op.PagedJoin.passes``), as a join the
+client's admission flagged ``paged`` always is. A fused exchange whose
+estimate exceeds the budget is declined. Each stage records its estimate
+(``op.HbmEst.max_bytes``) and, on the card, its measured peak
+(``op.HbmPeak.max_bytes``).
+
 PyTorch runs eagerly, so a stage program is traced anew on every call: there
 is no compile cache, precompile or hint pipeline. Nodes outside
 ``_supported`` run on the host kernels, as the JAX engine's unsupported
-nodes do, and each such run adds to ``op.HostFallback.count``. Windows,
-streaming, the memory governor (and with it the paged join and the budgeted
-duplicate cap) and the multi-device exchange are not ported yet.
+nodes do, and each such run adds to ``op.HostFallback.count``. Streaming and
+the multi-device exchange are not ported yet.
 """
 from __future__ import annotations
 
@@ -42,9 +52,11 @@ import numpy as np
 import torch
 
 from ballista_tpu_torch.config import (
-    BALLISTA_TPU_FUSE_INPUT_MAX_ROWS, BALLISTA_TPU_ICI_SHUFFLE, BALLISTA_TPU_MIN_DEVICE_ROWS,
-    BALLISTA_TPU_NATIVE_DTYPES, BallistaConfig,
+    BALLISTA_ENGINE_PAGED_JOIN, BALLISTA_ENGINE_PAGED_JOIN_THRESHOLD,
+    BALLISTA_SHUFFLE_COMPRESSION, BALLISTA_TPU_FUSE_INPUT_MAX_ROWS, BALLISTA_TPU_ICI_SHUFFLE,
+    BALLISTA_TPU_MIN_DEVICE_ROWS, BALLISTA_TPU_NATIVE_DTYPES, BallistaConfig,
 )
+from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine.numpy_engine import NumpyEngine
 from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.ops import kernels_np as KNP
@@ -53,8 +65,8 @@ from ballista_tpu_torch.ops.batch import ColumnBatch
 from ballista_tpu_torch.ops.eval_np import evaluate
 from ballista_tpu_torch.plan import physical as P
 from ballista_tpu_torch.plan.expr import (
-    Agg, Alias, BinaryOp, Case, Cast, Col, Expr, Func, InList, IsNull, Like, Lit,
-    Not, unalias, walk,
+    FOLLOWING, PRECEDING, Agg, Alias, BinaryOp, Case, Cast, Col, Expr, Func, InList, IsNull,
+    Like, Lit, Not, WindowFunc, unalias, walk,
 )
 from ballista_tpu_torch.plan.schema import DataType
 from ballista_tpu_torch.utils.cache import LoadingCache
@@ -98,21 +110,26 @@ class _HostFallback(Exception):
     side whose duplicate-key runs exceed the cap)."""
 
 
+class _PagedJoinFallback(Exception):
+    """Raised by ``_run_stage`` when the stage's estimate from its real leaves
+    exceeds the device budget: the stage runs again with ``node``, a
+    partitioned join, paged."""
+
+    def __init__(self, node):
+        super().__init__("stage program over the device budget; paging a join")
+        self.node = node
+
+
 # operators the device could run: when one runs on the host kernels instead,
 # it is a host fallback (scans, exchanges and merges are host work on every
 # engine)
 _DEVICE_OPS = (P.FilterExec, P.ProjectExec, P.HashAggregateExec, P.SortExec,
                P.HashJoinExec, P.CrossJoinExec, P.WindowExec)
 
-# duplicate-key run bounds of a join's build side (the JAX package's
-# MAX_BUILD_DUP and memory_model.BUILD_DUP_CEILING). Semi and anti joins
-# probe each candidate of a run in turn, so they keep MAX_BUILD_DUP; emit
-# joins may carry runs up to the ceiling: with no device budget (the memory
-# governor is not ported) memory cannot veto, and MAX_EXPAND_ROWS bounds the
-# expanded probe at trace time
-MAX_BUILD_DUP = 32
-_BUILD_DUP_CEILING = 1024
-MAX_EXPAND_ROWS = 1 << 23  # probe n_pad * duplicate bucket, emit joins
+# the expanded probe of an emit join (probe n_pad * duplicate bucket) past
+# which it falls back; the duplicate-run cap itself is the memory governor's
+# (_build_dup_cap)
+MAX_EXPAND_ROWS = 1 << 23
 
 
 class TorchEngine(NumpyEngine):
@@ -139,6 +156,11 @@ class TorchEngine(NumpyEngine):
         # prepared join build sides, computed once per execution (see
         # _prepared_build)
         self._build_prep: dict[tuple, tuple] = {}
+        # the device budget, resolved on first use (see _hbm_budget)
+        self._hbm_budget_v: Optional[int] = None
+        # > 0 while a paged join's passes run: each pass is sized to the
+        # budget already, so the stage estimate must not page it again
+        self._in_paged = 0
 
     def _apply_dtype_policy(self) -> None:
         # module-level so trace-time literal/arith decisions see it
@@ -152,7 +174,9 @@ class TorchEngine(NumpyEngine):
         self._fused.clear()
         self._tiny_keepalive.clear()
         self._build_prep.clear()
-        return [self._exec(plan, i) for i in range(plan.output_partitions())]
+        out = [self._exec(plan, i) for i in range(plan.output_partitions())]
+        self._note_device_peak()
+        return out
 
     # ---- dispatch --------------------------------------------------------------
     def _exec(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
@@ -167,10 +191,14 @@ class TorchEngine(NumpyEngine):
                 if fj is not None:
                     return fj
             return super()._exec(plan, part)
+        if isinstance(plan, P.HashJoinExec) and self._pages(plan):
+            return self._paged_join(plan, part)
         if not _supported(plan):
             return super()._exec(plan, part)
         try:
             return self._timed_stage(plan, part)
+        except _PagedJoinFallback as pf:
+            return self._page_and_rerun(plan, pf.node, part)
         except (_HostFallback, KT.DeviceUnsupported):
             pass  # a runtime shape the device path cannot express
         return super()._exec(plan, part)  # host kernels
@@ -189,6 +217,10 @@ class TorchEngine(NumpyEngine):
     def _metric(self, key: str, val: float) -> None:
         with self._lock:
             self.op_metrics[key] = self.op_metrics.get(key, 0.0) + val
+
+    def _metric_max(self, key: str, val: float) -> None:
+        with self._lock:
+            self.op_metrics[key] = max(self.op_metrics.get(key, 0.0), float(val))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -217,6 +249,8 @@ class TorchEngine(NumpyEngine):
         if not (isinstance(partial, P.HashAggregateExec) and partial.mode == "partial"
                 and _supported(partial)) or self._fuse_over_cap(rep.est_rows):
             return None
+        if self._fused_over_budget(id(rep), [rep]):
+            return None
         from ballista_tpu_torch.engine import fused_exchange as FX
 
         return self._fused_part(
@@ -229,6 +263,9 @@ class TorchEngine(NumpyEngine):
         if not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
             return None
         if self._fuse_over_cap(max(plan.left.est_rows, getattr(plan.right, "est_rows", 0))):
+            return None
+        # both exchanged sides are on the device at once
+        if self._fused_over_budget(id(plan), [plan.left, plan.right]):
             return None
         from ballista_tpu_torch.engine import fused_exchange as FX
 
@@ -267,6 +304,163 @@ class TorchEngine(NumpyEngine):
         cap = int(self.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
         return bool(cap) and est_rows > cap
 
+    def _fused_over_budget(self, key: int, exchanges: list) -> bool:
+        """True when the fused program keyed ``key`` would hold more than the
+        device budget: its exchanges' estimated footprints (the exchanged
+        input, the receive buffer and the merged result of each), from the
+        planner's row estimates. A designed decline, counted once per
+        execution in ``op.FusedDeclined.count``: the materialized exchange
+        runs instead."""
+        budget = self._hbm_budget()
+        if budget <= 0:
+            return False
+        est = sum(MM.estimate_ici_exchange_bytes(x.schema(), x.est_rows, self.mesh_devices)
+                  for x in exchanges if isinstance(x, P.RepartitionExec) and x.est_rows)
+        if est <= budget:
+            return False
+        if key not in self._fused:
+            self._fused[key] = None
+            self._metric("op.FusedDeclined.count", 1.0)
+        return True
+
+    # ---- the memory governor -------------------------------------------------------
+    def _hbm_budget(self) -> int:
+        """The device budget this engine plans against (0: none), resolved
+        once: ``ballista.engine.hbm_budget_bytes`` > 0 wins, 0 detects it
+        from the engine's card (a CPU engine probes nothing and has none),
+        < 0 turns the governor off."""
+        if self._hbm_budget_v is None:
+            detected = None if self.device.type == "cuda" else 0
+            self._hbm_budget_v = MM.resolve_budget_bytes(self.config, detected, self.device)
+        return self._hbm_budget_v
+
+    def _paged_join_enabled(self) -> bool:
+        return bool(self.config.get(BALLISTA_ENGINE_PAGED_JOIN))
+
+    def _paged_threshold(self) -> float:
+        return float(self.config.get(BALLISTA_ENGINE_PAGED_JOIN_THRESHOLD) or 1.0)
+
+    def _pages(self, node: P.HashJoinExec) -> bool:
+        """Does this join run as a paged join here? Flagged by admission (or
+        by a stage estimate over the budget), partitioned, with keys, and
+        not already one pass of a paged join."""
+        return (node.paged and bool(node.on) and not node.collect_build
+                and not self._in_paged and self._paged_join_enabled())
+
+    def _build_dup_cap(self, node: P.HashJoinExec, build: ColumnBatch) -> int:
+        """The longest duplicate-key run this join's build may hold on the
+        device (``memory_model.solve_build_dup_cap`` under the budget; probe
+        rows estimated by the build's, the sides being co-partitioned)."""
+        return MM.solve_build_dup_cap(node.left.schema(), build.num_rows, build.schema,
+                                      build.num_rows, node.how, self._hbm_budget())
+
+    def _page_and_rerun(self, plan: P.PhysicalPlan, join: P.HashJoinExec,
+                        part: int) -> ColumnBatch:
+        """The stage again with ``join`` (possibly interior) flagged paged:
+        leaf collection then runs it as a paged join and the rest of the
+        stage reads its output as a leaf."""
+        if join is plan:
+            return self._paged_join(join, part)
+
+        def mark(node: P.PhysicalPlan) -> P.PhysicalPlan:
+            if node is join:
+                return P.HashJoinExec(node.left, node.right, node.how, node.on, node.filter,
+                                      node.collect_build, paged=True)
+            kids = node.children()
+            new = [mark(c) for c in kids]
+            if all(a is b for a, b in zip(kids, new)):
+                return node
+            return node.with_children(*new)
+
+        new_plan = mark(plan)
+        # untouched subtrees keep their identity, so the id-keyed caches hit;
+        # the rebuilt spine lives for the execution, so no later node reuses
+        # one of its ids
+        self._tiny_keepalive.append(new_plan)
+        return self._exec(new_plan, part)
+
+    def _paged_join(self, plan: P.HashJoinExec, part: int) -> ColumnBatch:
+        """A join whose program cannot fit the device budget, in passes
+        (Grace-style): both sides of this partition are hash-split on the
+        join keys into ``passes`` buckets on disk (salted, so the split is
+        independent of the exchange that partitioned them), and each bucket
+        pair runs as an ordinary device join sized to fit the budget.
+        Matching rows share a bucket, so the passes' results together are
+        the join (in another row order)."""
+        from ballista_tpu_torch.engine.spill import PartitionSpill
+
+        probe = self._exec(plan.left, part)
+        build = self._exec(plan.right, part)
+        budget = self._hbm_budget()
+        limit = int(budget * self._paged_threshold()) if budget > 0 else 0
+        # passes are sized with the build's real duplicate runs (a key's
+        # duplicates share a bucket, so splitting never shortens them),
+        # capped at what one device join may hold
+        dup = 1
+        if plan.on and build.num_rows:
+            bkey, bvalid = KNP.combined_key([evaluate(r, build) for _, r in plan.on])
+            bk = bkey[bvalid]
+            if len(bk):
+                _, counts = np.unique(bk, return_counts=True)
+                dup = min(int(counts.max()), self._build_dup_cap(plan, build))
+        passes = 2
+        while limit and passes < MM.MAX_PAGED_PASSES and MM.estimate_join_program(
+                probe.schema, max(1, probe.num_rows // passes),
+                build.schema, max(1, build.num_rows // passes), plan.how,
+                max_dup=dup) > limit:
+            passes <<= 1
+        codec = str(self.config.get(BALLISTA_SHUFFLE_COMPRESSION) or "")
+        p_spill = PartitionSpill(passes, [l for l, _ in plan.on], salted=True,
+                                 compression=codec)
+        b_spill = PartitionSpill(passes, [r for _, r in plan.on], salted=True,
+                                 compression=codec)
+        pieces: list[ColumnBatch] = []
+        self._in_paged += 1
+        try:
+            p_spill.append_split(probe)
+            p_spill.finish()
+            b_spill.append_split(build)
+            b_spill.finish()
+            for b in range(passes):
+                pb = p_spill.read_all(b, probe.schema)
+                bb = b_spill.read_all(b, build.schema)
+                # an empty side that cannot change the result: inner and
+                # semi need both; left and anti emit unmatched probe rows,
+                # right unmatched build rows, full both
+                if plan.how in ("inner", "semi"):
+                    if pb.num_rows == 0 or bb.num_rows == 0:
+                        continue
+                elif plan.how in ("left", "anti"):
+                    if pb.num_rows == 0:
+                        continue
+                elif plan.how == "right":
+                    if bb.num_rows == 0:
+                        continue
+                elif pb.num_rows == 0 and bb.num_rows == 0:
+                    continue
+                sub = P.HashJoinExec(_scan_of(pb), _scan_of(bb), plan.how, plan.on,
+                                     plan.filter)
+                # alive for the execution: the id-keyed caches must never
+                # see a recycled address
+                self._tiny_keepalive.append(sub)
+                pieces.append(self._exec(sub, 0))
+        finally:
+            self._in_paged -= 1
+            p_spill.close()
+            b_spill.close()
+        self._metric("op.PagedJoin.count", 1.0)
+        self._metric("op.PagedJoin.passes", float(passes))
+        return ColumnBatch.concat(pieces) if pieces else ColumnBatch.empty(plan.schema())
+
+    def _note_device_peak(self) -> None:
+        """Fold the allocator's high-water mark since its last reset into
+        ``op.DevicePeak.max_bytes``: the most device memory the execution
+        held at once, cached leaves included. Each device stage resets the
+        mark to measure itself, so it is read before every reset and once
+        at the end."""
+        if self.device.type == "cuda":
+            self._metric_max("op.DevicePeak.max_bytes", MM.device_peak_bytes(self.device))
+
     # ---- the stage driver ----------------------------------------------------------
     def _run_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
         leaves = self._collect_leaves(plan, part)
@@ -275,13 +469,40 @@ class TorchEngine(NumpyEngine):
             # every leaf is already on the host: a stage this small costs
             # more in launches and copies than its host kernels take
             return self._host_tiny_stage(plan, part, leaves)
+
+        # the stage's device bytes, estimated from its real leaves: past the
+        # budget, its widest partitioned join pages (a safety net under
+        # admission, which plans from row estimates)
+        est = MM.estimate_program_bytes(plan, leaves)
+        self._metric_max("op.HbmEst.max_bytes", est)
+        budget = self._hbm_budget()
+        if (budget > 0 and est > self._paged_threshold() * budget and not self._in_paged
+                and self._paged_join_enabled()):
+            # never a join whose output a fused exchange supplied (an "out"
+            # leaf): the fused program serves the whole join on partition 0,
+            # while a paged join reads one exchange partition per task, so
+            # paging it would lose every row outside partition 0
+            candidates = [n for n in P.walk_physical(plan)
+                          if isinstance(n, P.HashJoinExec) and n.on and not n.collect_build
+                          and not n.paged and leaves.get(id(n), ("",))[0] != "out"]
+            if candidates:
+                raise _PagedJoinFallback(
+                    max(candidates, key=lambda n: MM.estimate_program_bytes(n, leaves)))
+
         tensors = self._device_args(leaves)
         stage_fn, holder = _make_stage_fn(plan, _stage_layout(leaves))
 
+        base = self._stage_peak_start()
         t0 = time.time()
         out = stage_fn(*tensors)
         self._sync()
         dt = time.time() - t0
+        if base is not None:
+            # arguments (each tensor once) plus what the program allocated
+            resident = sum(t.numel() * t.element_size()
+                           for t in {t.data_ptr(): t for t in tensors}.values())
+            self._metric_max("op.HbmPeak.max_bytes",
+                             MM.measured_program_bytes(self.device, base, resident))
         in_rows = float(sum(enc.n_rows for _, enc, _, _, _ in leaves.values()))
         self._metric("op.DeviceExecute.time_s", dt)
         self._metric("op.DeviceExecute.count", 1.0)
@@ -289,6 +510,17 @@ class TorchEngine(NumpyEngine):
 
         out_db = KT.device_batch_from_outputs(holder["meta"], list(out), 0)
         return self._fetch(out_db)
+
+    def _stage_peak_start(self) -> Optional[int]:
+        """On the card: the allocator's peak reset (after folding it into
+        ``op.DevicePeak.max_bytes``) and the bytes allocated now, from which
+        the stage's peak is measured. None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        self._sync()
+        self._note_device_peak()
+        torch.cuda.reset_peak_memory_stats(self.device)
+        return torch.cuda.memory_allocated(self.device)
 
     def _fetch(self, out_db) -> ColumnBatch:
         t0 = time.time()
@@ -397,6 +629,11 @@ class TorchEngine(NumpyEngine):
                 if fused is not None:
                     leaves[id(node)] = ("out", self._encode(fused), None, None, node)
                     return
+            if isinstance(node, P.HashJoinExec) and self._pages(node):
+                # a paged join inside the stage: its output is a leaf
+                leaves[id(node)] = ("out", self._encode(self._paged_join(node, part)), None,
+                                    None, node)
+                return
             if isinstance(node, P.HashJoinExec) and _supported(node):
                 if _fusable_partitioned_join(node):
                     fused = self._try_fused_join(node, part)
@@ -452,7 +689,7 @@ class TorchEngine(NumpyEngine):
             else:
                 build = self._exec_child(node.right, part)
             t0 = time.time()
-            prep = _prep_build(build, node, _build_dup_cap(node))
+            prep = _prep_build(build, node, self._build_dup_cap(node, build))
             self._metric("op.HostEncode.time_s", time.time() - t0)
             self._build_prep[key] = prep
         return prep
@@ -501,8 +738,10 @@ def _fusable_partitioned_join(node: P.PhysicalPlan) -> bool:
     )
 
 
-def _build_dup_cap(node: P.HashJoinExec) -> int:
-    return MAX_BUILD_DUP if node.how in ("semi", "anti") else _BUILD_DUP_CEILING
+def _scan_of(batch: ColumnBatch) -> P.MemoryScanExec:
+    """A one-partition scan of single-use data (a paged join's bucket), kept
+    out of the content-keyed leaf caches."""
+    return P.MemoryScanExec([batch], batch.schema, ephemeral=True)
 
 
 def _prep_build(build: ColumnBatch, node: P.HashJoinExec, dup_cap: int):
@@ -602,6 +841,28 @@ def _supported(plan: P.PhysicalPlan) -> bool:
         return True
     if isinstance(plan, P.SortExec):
         return all(_expr_ok(e) for e, _ in plan.keys)
+    if isinstance(plan, P.WindowExec):
+        in_schema = plan.input.schema()
+        for e in plan.window_exprs:
+            w = unalias(e)
+            if not isinstance(w, WindowFunc):
+                return False
+            if w.fn not in ("row_number", "rank", "dense_rank",
+                            "sum", "avg", "min", "max", "count"):
+                return False
+            if not all(_expr_ok(s) for s in
+                       list(w.args) + list(w.partition_by) + [o for o, _ in w.order_by]):
+                return False
+            if w.args and w.args[0].data_type(in_schema) is DataType.STRING:
+                return False  # string window aggregates stay on the host
+            if (w.frame is not None and w.frame.units == "range"
+                    and {w.frame.start[0], w.frame.end[0]} & {PRECEDING, FOLLOWING}):
+                # value offsets need the single numeric order key (the
+                # planner enforces it for SQL; guards programmatic plans)
+                if len(w.order_by) != 1 or \
+                        w.order_by[0][0].data_type(in_schema) is DataType.STRING:
+                    return False
+        return True
     return False
 
 
@@ -655,6 +916,9 @@ def _trace_node(plan: P.PhysicalPlan, env: dict):
         db = _trace_node(plan.input, env)
         key_specs = [(KT.eval_dev(e, db), asc) for e, asc in plan.keys]
         return KT.sort_device(db, key_specs, plan.fetch)
+
+    if isinstance(plan, P.WindowExec):
+        return KT.window_device(_trace_node(plan.input, env), plan.window_exprs, plan.schema())
 
     raise ExecutionError(f"cannot trace {type(plan).__name__}")
 

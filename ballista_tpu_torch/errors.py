@@ -21,6 +21,18 @@ class PlanningError(BallistaError):
     pass
 
 
+class PlanVerificationError(PlanningError):
+    """A plan refused at admission. Today one rule raises it, PV007: the
+    memory governor found no partition count or paged join that fits a stage
+    in the device budget. ``findings`` holds (rule, operator, message)
+    triples; the message carries the governor's fix hint."""
+
+    def __init__(self, findings: list):
+        self.findings = findings
+        msgs = "; ".join(f"[{rule}] {op}: {msg}" for rule, op, msg in findings)
+        super().__init__(f"plan verification failed: {msgs}")
+
+
 class SqlError(BallistaError):
     pass
 

@@ -1681,6 +1681,16 @@ def hash_bucket_dev(db: DeviceBatch, key_cols: list[DeviceCol], n: int) -> torch
 
 
 # ---- device sort / top-k -----------------------------------------------------------
+def _lex_order(keys: list, n: int, device) -> torch.Tensor:
+    """The permutation that sorts rows by ``keys`` (most significant first),
+    ties kept in row order: stable argsorts chained from the least
+    significant key."""
+    order = torch.arange(n, dtype=torch.int64, device=device)
+    for key in reversed(keys):
+        order = order[torch.argsort(key[order], stable=True)]
+    return order
+
+
 def sort_device(
     db: DeviceBatch, key_specs: list[tuple[DeviceCol, bool]], fetch: Optional[int] = None
 ) -> DeviceBatch:
@@ -1705,9 +1715,7 @@ def sort_device(
         v = canonical_data(c)  # NULL slots may cover garbage tie-break values
         vkey = v.to(torch.float64) if v.is_floating_point() else v.to(torch.int64)
         keys.append(vkey if asc else -vkey)
-    order = torch.arange(n_pad, dtype=torch.int64, device=db.device)
-    for key in reversed(keys):
-        order = order[torch.argsort(key[order], stable=True)]
+    order = _lex_order(keys, n_pad, db.device)
 
     out_pad = n_pad
     n_rows = db.n_rows
@@ -1724,6 +1732,404 @@ def sort_device(
         for c in db.cols
     ]
     return DeviceBatch(db.schema, cols, row_valid, n_rows)
+
+
+# ---- window functions --------------------------------------------------------------
+def _cummax(x: torch.Tensor) -> torch.Tensor:
+    return torch.cummax(x, 0).values
+
+
+def _seg_scan(vals: torch.Tensor, seg_first: torch.Tensor, combine) -> torch.Tensor:
+    """Segmented inclusive prefix scan (Hillis-Steele doubling): out_i =
+    combine over vals[seg_first_i .. i], in log2(n) shifted-combine steps.
+    ``seg_first`` is each row's segment start (a segment's rows are
+    contiguous)."""
+    n = int(vals.shape[0])
+    idx = torch.arange(n, dtype=torch.int64, device=vals.device)
+    m = vals
+    s = 1
+    while s < n:
+        shifted = torch.cat([m[:s], m[:-s]])
+        m = torch.where((idx - s) >= seg_first, combine(m, shifted), m)
+        s <<= 1
+    return m
+
+
+def sparse_level(length: torch.Tensor) -> torch.Tensor:
+    """floor(log2(length)) of int64 lengths >= 1, by integer means: the
+    exponent ``frexp`` gives (length = m * 2^e, m in [0.5, 1)) less one.
+    A float log2 can land an ulp below an integer and pick the level
+    under the right one."""
+    return torch.frexp(length.to(torch.float64)).exponent.to(torch.int64) - 1
+
+
+def window_device(db: DeviceBatch, window_exprs, out_schema: Schema) -> DeviceBatch:
+    """Device evaluation of ``fn(...) OVER (PARTITION BY ... ORDER BY ...)``:
+    the port of ``kernels_jax.window_device``, with the semantics of
+    ``kernels_np.window_eval`` (the SQL default frame: running with peers when
+    ORDER BY is present, the whole partition otherwise; NULLs sort as
+    ``sort_device`` sorts them). One stable lexicographic sort per window
+    expression orders rows by (validity, partition keys, order keys); the
+    results scatter back to the rows' own positions. Padded-invalid rows sort
+    last into a segment of their own."""
+    from ballista_tpu_torch.plan.expr import WindowFunc, unalias
+
+    cols = list(db.cols)
+    for e in window_exprs:
+        w = unalias(e)
+        assert isinstance(w, WindowFunc)
+        cols.append(_one_window_dev(db, w))
+    return DeviceBatch(out_schema, cols, db.row_valid, db.n_rows)
+
+
+def _group_key_bits(c: DeviceCol) -> torch.Tensor:
+    """A partition key as int64 whose equality is the key's: codes and ints
+    as they are, floats by their f64 bits with -0.0 made 0.0. Bit equality
+    keeps NaN rows in one partition, where a float comparison would split
+    them (NaN != NaN)."""
+    canon = canonical_data(c)
+    if canon.is_floating_point():
+        d64 = canon.to(torch.float64)
+        return torch.where(d64 == 0.0, 0.0, d64).view(torch.int64)
+    return canon.to(torch.int64)
+
+
+def _one_window_dev(db: DeviceBatch, w) -> DeviceCol:
+    n = db.n_pad
+    dev = db.device
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+
+    keys: list = [(~db.row_valid).to(torch.int32)]
+    part_specs: list = []
+    for p in w.partition_by:
+        c = eval_dev(p, db)
+        part_specs.append(c)
+        if c.null is not None:
+            keys.append(c.null.to(torch.int32))
+        keys.append(_group_key_bits(c))
+    order_specs: list = []
+    for expr, asc in w.order_by:
+        c = eval_dev(expr, db)
+        order_specs.append((c, asc))
+        if c.null is not None:
+            nullind = c.null.to(torch.int32)
+            keys.append(nullind if asc else -nullind)
+        v = canonical_data(c)
+        v = v.to(torch.float64) if v.is_floating_point() else v.to(torch.int64)
+        keys.append(v if asc else -v)
+    order = _lex_order(keys, n, dev)
+
+    first = _ones_bool(1, dev)
+
+    def changed(c: DeviceCol, bits: bool) -> torch.Tensor:
+        # partition keys compare bits (NaN rows form one partition), order
+        # keys compare values (each NaN is a peer group of its own), as the
+        # host kernels do
+        vs = (_group_key_bits(c) if bits else canonical_data(c))[order]
+        ch = torch.cat([first, vs[1:] != vs[:-1]])
+        if c.null is not None:
+            ns = c.null[order]
+            ch = ch | torch.cat([first, ns[1:] != ns[:-1]])
+        return ch
+
+    # invalid rows sort last; the first of them starts a segment of its own
+    rv_s = db.row_valid[order]
+    seg_start = torch.cat([first, rv_s[1:] != rv_s[:-1]])
+    for c in part_specs:
+        seg_start = seg_start | changed(c, bits=True)
+    peer_start = seg_start
+    for c, _asc in order_specs:
+        peer_start = peer_start | changed(c, bits=False)
+
+    seg_first = _cummax(torch.where(seg_start, idx, 0))
+
+    def last_idx(starts):
+        tail = torch.full((1,), n, dtype=torch.int64, device=dev)
+        nxt = torch.cat([torch.where(starts, idx, n)[1:], tail])
+        return torch.flip(torch.cummin(torch.flip(nxt, (0,)), 0).values, (0,)) - 1
+
+    def scatter(vals, dtype: DataType, null=None, scale=None):
+        # ``order`` is a permutation: every slot written once
+        out = torch.empty(n, dtype=vals.dtype, device=dev)
+        out[order] = vals
+        onull = None
+        if null is not None:
+            onull = torch.empty(n, dtype=torch.bool, device=dev)
+            onull[order] = null
+        return DeviceCol(dtype, out, onull, scale=scale)
+
+    if w.fn == "row_number":
+        return scatter(idx - seg_first + 1, DataType.INT64)
+    if w.fn == "rank":
+        first_of_peer = _cummax(torch.where(peer_start, idx, 0))
+        return scatter(first_of_peer - seg_first + 1, DataType.INT64)
+    if w.fn == "dense_rank":
+        peers_so_far = torch.cumsum(peer_start.to(torch.int64), 0)
+        return scatter(peers_so_far - peers_so_far[seg_first] + 1, DataType.INT64)
+
+    # aggregate window functions
+    is_int = False
+    out_scale: Optional[int] = None
+    c = None
+    if w.args:
+        c = eval_dev(w.args[0], db)
+        if c.is_string:
+            raise ExecutionError("string window aggregates unsupported")
+        if c.scale is not None and w.fn in ("sum", "min", "max", "avg") \
+                and _eb(c) * n < _I64_SAFE:
+            # scaled decimal: exact int64 prefix sums (the headroom is proven
+            # at trace time); AVG divides exactly on output
+            is_int = True
+            out_scale = c.scale
+            vals = c.data[order]
+        elif c.scale is not None:
+            vals = _as_float(c, torch.float64)[order]  # count, or no headroom
+        else:
+            is_int = c.dtype.is_integer and w.fn in ("sum", "min", "max")
+            vals = c.data.to(torch.int64 if is_int else torch.float64)[order]
+        valid = _mask(db.row_valid, c.null)[order]
+    else:  # count(*)
+        vals = torch.ones(n, dtype=torch.int64, device=dev)
+        valid = db.row_valid[order]
+
+    vz = torch.where(valid, vals, torch.zeros((), dtype=vals.dtype, device=dev))
+    csum = torch.cumsum(vz, 0)
+    ccnt = torch.cumsum(valid.to(torch.int64), 0)
+    before_seg = torch.clamp(seg_first - 1, min=0)
+    base_sum = torch.where(seg_first > 0, csum[before_seg], torch.zeros_like(csum[:1]))
+    base_cnt = torch.where(seg_first > 0, ccnt[before_seg], 0)
+    end_idx = last_idx(peer_start) if w.order_by else last_idx(seg_start)
+
+    avg_out_scale: list = [None]
+
+    def avg_full(s_, cnt):
+        if out_scale is not None:
+            data, sc2, _ = avg_scaled(s_, cnt, out_scale, _eb(c) * n)
+            avg_out_scale[0] = sc2
+            return data
+        return s_ / torch.clamp(cnt, min=1)
+
+    def agg_out(full, empty):
+        if w.fn == "count":
+            return scatter(full.to(torch.int64), DataType.INT64)
+        if out_scale is not None:
+            scale = avg_out_scale[0] if w.fn == "avg" else out_scale
+            return scatter(full, DataType.FLOAT64, empty, scale=scale)
+        dt = DataType.INT64 if is_int else DataType.FLOAT64
+        return scatter(full.to(torch.int64 if is_int else torch.float64), dt, empty)
+
+    if w.frame is not None:
+        return _frame_aggregate_dev(
+            w, n, vals, valid, seg_start, peer_start, seg_first, last_idx,
+            csum, ccnt, is_int, agg_out, order_specs, order, avg_full,
+        )
+
+    if w.fn in ("sum", "avg", "count"):
+        run_sum = csum[end_idx] - base_sum
+        run_cnt = ccnt[end_idx] - base_cnt
+        if w.fn == "sum":
+            full = run_sum
+        elif w.fn == "count":
+            full = run_cnt
+        else:
+            full = avg_full(run_sum, run_cnt)
+        return agg_out(full, run_cnt == 0)
+    if w.fn in ("min", "max"):
+        vv = torch.where(valid, vals, _window_sentinel(vals, w.fn == "min"))
+        run = _seg_scan(vv, seg_first, torch.minimum if w.fn == "min" else torch.maximum)
+        # empty = no valid value in the frame (a sentinel comparison would
+        # null out frames whose real min/max is +-inf or an int64 extreme)
+        run_cnt = ccnt[end_idx] - base_cnt
+        return agg_out(run[end_idx], run_cnt == 0)
+    raise ExecutionError(f"window function {w.fn} unsupported on device")
+
+
+def _window_sentinel(vals: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """The identity of min (or max) in ``vals``' dtype, as a 0-d tensor."""
+    if vals.is_floating_point():
+        v = float("inf") if is_min else float("-inf")
+    else:
+        info = torch.iinfo(vals.dtype)
+        v = info.max if is_min else info.min
+    return torch.full((), v, dtype=vals.dtype, device=vals.device)
+
+
+def _bounded_searchsorted_dev(values, queries, lo0, hi0, side: str) -> torch.Tensor:
+    """Per-row binary search of ``queries[i]`` within ``values[lo0[i]:hi0[i])``
+    (ascending within each row's own window), in a fixed log2(n) number of
+    steps of gathers and selects. NaN follows ``np.searchsorted``'s total
+    order (NaN above every number, NaN == NaN): a NaN query inserts at the
+    first NaN for 'left' and after the last for 'right', as the host kernels
+    do."""
+    n = int(values.shape[0])
+    lo = lo0.to(torch.int64)
+    hi = hi0.to(torch.int64)
+    qnan = torch.isnan(queries)  # all False for integer keys
+    steps = max(1, int(np.ceil(np.log2(n + 1))))
+    for _ in range(steps):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        v = values[torch.clamp(mid, 0, n - 1)]
+        if side == "left":
+            go_right = torch.where(qnan, ~torch.isnan(v), v < queries)
+        else:
+            go_right = qnan | (v <= queries)
+        active = mid < hi
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo
+
+
+def _frame_aggregate_dev(
+    w, n, vals, valid, seg_start, peer_start, seg_first, last_idx,
+    csum, ccnt, is_int, agg_out, order_specs, order, avg_full,
+):
+    """Explicit ROWS / RANGE frames: the port of
+    ``kernels_jax._frame_aggregate_dev``, with the semantics of
+    ``kernels_np._frame_aggregate``. Frame bounds are index arithmetic
+    clipped to the segment; sums and counts come from the prefix arrays,
+    min and max from a sparse table of log2(n) levels. RANGE frames with
+    value offsets bound their rows by a per-row binary search over the sorted
+    key, within each segment's non-null key region. Every gather index is
+    clamped into the array: an empty frame's bound may lie one past its end
+    (its value is masked out afterwards)."""
+    from ballista_tpu_torch.plan.expr import (
+        CURRENT_ROW, FOLLOWING, PRECEDING, UNBOUNDED_FOLLOWING, UNBOUNDED_PRECEDING,
+    )
+
+    f = w.frame
+    dev = vals.device
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    seg_last = last_idx(seg_start)
+    peer_first = _cummax(torch.where(peer_start, idx, 0))
+    peer_last = last_idx(peer_start)
+
+    if f.units == "rows":
+        def bound(kind, off, is_start):
+            if kind == UNBOUNDED_PRECEDING:
+                return seg_first
+            if kind == UNBOUNDED_FOLLOWING:
+                return seg_last
+            if kind == CURRENT_ROW:
+                return idx
+            d = int(off)
+            return idx - d if kind == PRECEDING else idx + d
+
+        lo = bound(*f.start, True)
+        hi = bound(*f.end, False)
+    elif {f.start[0], f.end[0]} & {PRECEDING, FOLLOWING}:
+        # RANGE with value offsets over the single numeric ORDER BY key
+        # (the planner enforces it; checked again here)
+        if order_specs is None or len(order_specs) != 1:
+            raise DeviceUnsupported("RANGE offset frame without single order key")
+        kcol, asc = order_specs[0]
+        if kcol.is_string:
+            raise DeviceUnsupported("RANGE offset frame over string key")
+        if kcol.scale is not None:
+            # scaled decimal key: integer bounds, offsets scaled exactly
+            key = kcol.data[order]
+            key_sent = torch.iinfo(torch.int64).max
+
+            def off_of(off):
+                dv = float(off) * 10.0**kcol.scale
+                if dv != round(dv):
+                    raise DeviceUnsupported("RANGE offset not at key scale")
+                return int(round(dv))
+        else:
+            # float keys add the offset as a Python float: an addition
+            # rounds the same on every device
+            key = kcol.data.to(torch.float64)[order]
+            key_sent = float("inf")
+
+            def off_of(off):
+                return float(off)
+        if not asc:
+            key = -key  # PRECEDING is always the smaller key
+        knull = kcol.null[order] if kcol.null is not None else \
+            torch.zeros(n, dtype=torch.bool, device=dev)
+        # non-null key region per segment: nulls sort last for asc, first
+        # for desc (the host's _sort_key_arrays encoding)
+        cn = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        torch.cumsum(knull.to(torch.int64), 0)])
+        seg_nulls = cn[seg_last + 1] - cn[seg_first]
+        if asc:
+            va, vb = seg_first, seg_last + 1 - seg_nulls  # [va, vb)
+        else:
+            va, vb = seg_first + seg_nulls, seg_last + 1
+        # null and padded slots sort past every real key in the searched
+        # values (the [va, vb) bounds already exclude them)
+        skey = torch.where(knull, torch.full((), key_sent, dtype=key.dtype, device=dev), key)
+
+        def rng_bound(kind, off, is_start):
+            if kind == UNBOUNDED_PRECEDING:
+                return seg_first
+            if kind == UNBOUNDED_FOLLOWING:
+                return seg_last
+            if kind == CURRENT_ROW:
+                return peer_first if is_start else peer_last
+            d = off_of(off) if kind == FOLLOWING else -off_of(off)
+            q = key + d
+            if is_start:
+                return _bounded_searchsorted_dev(skey, q, va, vb, "left")
+            return _bounded_searchsorted_dev(skey, q, va, vb, "right") - 1
+
+        lo = rng_bound(*f.start, True)
+        hi = rng_bound(*f.end, False)
+        # a null key's offset bound collapses to the null peer group (nulls
+        # are peers); UNBOUNDED and CURRENT ROW bounds keep their meaning
+        if f.start[0] in (PRECEDING, FOLLOWING):
+            lo = torch.where(knull, peer_first, lo)
+        if f.end[0] in (PRECEDING, FOLLOWING):
+            hi = torch.where(knull, peer_last, hi)
+    else:
+        def bound(kind, off, is_start):
+            if kind == UNBOUNDED_PRECEDING:
+                return seg_first
+            if kind == UNBOUNDED_FOLLOWING:
+                return seg_last
+            return peer_first if is_start else peer_last
+
+        lo = bound(*f.start, True)
+        hi = bound(*f.end, False)
+
+    lo = torch.minimum(torch.maximum(lo, seg_first), seg_last + 1)
+    hi = torch.minimum(torch.maximum(hi, seg_first - 1), seg_last)
+    empty_frame = lo > hi
+    hi_c = torch.clamp(torch.where(empty_frame, lo, hi), max=n - 1)
+    before = torch.clamp(lo - 1, min=0)
+    bcnt = torch.where(lo > 0, ccnt[before], 0)
+    fcnt = torch.where(empty_frame, 0, ccnt[hi_c] - bcnt)
+
+    if w.fn in ("sum", "avg", "count"):
+        zero = torch.zeros((), dtype=csum.dtype, device=dev)
+        base = torch.where(lo > 0, csum[before], zero)
+        fsum = torch.where(empty_frame, zero, csum[hi_c] - base)
+        if w.fn == "sum":
+            full = fsum
+        elif w.fn == "count":
+            full = fcnt
+        else:
+            full = avg_full(fsum, fcnt)
+        return agg_out(full, fcnt == 0)
+    if w.fn in ("min", "max"):
+        reduce_ = torch.minimum if w.fn == "min" else torch.maximum
+        sent = _window_sentinel(vals, w.fn == "min")
+        vv = torch.where(valid, vals, sent)
+        # the sparse table, each level padded to the full length with the
+        # sentinel: level j holds the reduction of 2^j rows from each row
+        tables = [vv]
+        j = 1
+        while (1 << j) <= n:
+            prev = tables[-1]
+            half = 1 << (j - 1)
+            tables.append(reduce_(prev, torch.cat([prev[half:], sent.expand(half)])))
+            j += 1
+        stacked = torch.stack(tables)  # [levels, n]
+        level = sparse_level(torch.clamp(hi - lo + 1, min=1))
+        l_pos = torch.clamp(lo, max=n - 1)
+        r_pos = torch.maximum(hi_c - (torch.ones_like(level) << level) + 1, l_pos)
+        out = reduce_(stacked[level, l_pos], stacked[level, r_pos])
+        return agg_out(out, fcnt == 0)
+    raise ExecutionError(f"window function {w.fn} does not accept a frame")
 
 
 # ---- aggregates ----------------------------------------------------------------------

@@ -19,14 +19,19 @@ Phases, each of which passes or ends the run with a non-zero exit:
              ``hash_bucket_dev`` on ``cuda`` bit-identical to ``kernels_np``
              (the host engine's shuffle bucketing) over SF1's orders.
 5. slice   — TPC-H through ``BallistaContext.standalone()`` on ``cuda``,
-             on four paths (``PATHS``): the default, fused path (q1, q6, q3,
+             on five paths (``PATHS``): the default, fused path (q1, q6, q3,
              q5, q12, cold then warm; a final aggregate over an exchange runs
              as one fused program, its input cached on the device); q3 and
              q5 with ``broadcast_rows_threshold=0`` (their joins partition
              and fuse); q1, q3 and q5 with ``ici_shuffle=false`` after
              ``clear_caches()`` (per-partition aggregate stages); q1 with
              ``min_device_rows=32768`` (tiny stages on the host, as bench.py
-             sets it). Each run is held against an exact numpy int64
+             sets it); q3 with its joins partitioned and unfused under a
+             device budget a quarter of its largest join's estimate (the
+             memory governor must page a join: a "paged" verdict, at least
+             two passes). Every other run is planned under the budget
+             detected from the card, and every verdict must be "fits".
+             Each run is held against an exact numpy int64
              reference computed from the parquet files (ints, strings,
              dates and decimal sums exactly equal, AVG within 1e-6
              relative) and the port's host engine, ``backend="numpy"``
@@ -42,7 +47,16 @@ Phases, each of which passes or ends the run with a non-zero exit:
              (device time inside the join probe, sorted grouping and
              segment sums). The (n, k, columns) shapes the stages gave
              grouped_sums are recorded and the kernel checked at each.
-6. timing  — grouped_sums at one column (2^21 rows, k = 12, int64), at
+             Each run prints the budget, the largest stage estimate, the
+             largest stage peak measured and every stage's pair.
+6. windows — the four ``WINDOW_QUERIES`` (rankings, running sums, ROWS and
+             RANGE frames, a window over an aggregate), cold then warm,
+             against the host engine (ints and strings exactly, floats
+             within 1e-9 relative) and, for the decimal sums and averages,
+             an exact int64 reference (``window_exact``); zero host
+             fallbacks; warm runs profiled (device time inside the window
+             functions, their sorts, segmented scans and frames).
+7. timing  — grouped_sums at one column (2^21 rows, k = 12, int64), at
              the largest and smallest stages of q1's warm run (the fused
              program's partial aggregate and final merge), at the largest
              stage of its unfused run, and at a
@@ -87,7 +101,43 @@ PATHS = (
      ("cold", "warm")),
     ("tiny", {"ballista.tpu.min_device_rows": "32768"}, ("q1",), ("once",)),
     ("unfused", {"ballista.tpu.ici_shuffle": "false"}, ("q1", "q3", "q5"), ("cold",)),
+    # q3's joins partitioned and unfused, under a device budget (set by
+    # paged_budget) below what its largest join needs at 16 partitions: the
+    # memory governor pages it
+    ("paged", {"ballista.optimizer.broadcast_rows_threshold": "0",
+               "ballista.tpu.ici_shuffle": "false",
+               "ballista.engine.max_shuffle_partitions": "16"}, ("q3",), ("once",)),
 )
+BUDGET_KEY = "ballista.engine.hbm_budget_bytes"
+# the windows path (default settings, cold then warm): each query held
+# against the host engine. W1 keeps the top line of every order; W2 ranks
+# and sums orders per customer; W3 runs moving ROWS frames and a RANGE frame
+# over a decimal key; W4 ranks an aggregate on one partition
+WINDOW_QUERIES = {
+    "W1": "select count(*) as n, sum(l_extendedprice) as top from (select l_extendedprice, "
+          "row_number() over (partition by l_orderkey order by l_extendedprice desc, "
+          "l_linenumber) as rn from lineitem) t where rn = 1",
+    "W2": "select o_orderkey, rank() over (partition by o_custkey order by o_totalprice desc) "
+          "as rk, dense_rank() over (partition by o_custkey order by o_orderpriority) as dr, "
+          "sum(o_totalprice) over (partition by o_custkey order by o_orderdate) as run "
+          "from orders",
+    "W3": "select l_orderkey, l_linenumber, sum(l_quantity) over (partition by l_suppkey "
+          "order by l_shipdate, l_orderkey, l_linenumber rows between 6 preceding and "
+          "current row) as qty7, max(l_extendedprice) over (partition by l_suppkey "
+          "order by l_shipdate, l_orderkey, l_linenumber rows between 10 preceding and "
+          "10 following) as max21, avg(l_discount) over (partition by l_suppkey order by "
+          "l_extendedprice range between 100 preceding and 100 following) as disc "
+          "from lineitem where l_shipdate < date '1993-01-01'",
+    "W4": "select l_suppkey, sum(l_extendedprice * (1 - l_discount)) as rev, rank() over "
+          "(order by sum(l_extendedprice * (1 - l_discount)) desc) as rk from lineitem "
+          "group by l_suppkey order by rk limit 100",
+}
+# the window queries whose aggregate groups into at most MASKED_SEG_K slots
+WINDOW_LAUNCHING = ("W1",)
+# averages of decimals: the engine rounds them to 8 decimals (avg_scaled at
+# the largest sniffed scale, as the JAX engine does), so they are held to
+# half a unit of the 8th decimal of the exact average
+WINDOW_AVERAGES = {"W3": ("disc",)}
 FUSED_KEYS = ("op.FusedIciExchange.count", "op.FusedIciJoin.count", "op.FusedDeclined.count")
 # (path, query) -> FUSED_KEYS: the JAX engine's fused aggregates (one count
 # per output partition served, 16), fused joins and fused attempts that
@@ -98,7 +148,7 @@ FUSED = {
     ("default", "q3"): (16, 0, 0), ("default", "q5"): (16, 0, 0),
     ("threshold0", "q3"): (16, 32, 0),
     ("unfused", "q1"): (0, 0, 0), ("unfused", "q3"): (0, 0, 0), ("unfused", "q5"): (0, 0, 0),
-    ("tiny", "q1"): (16, 0, 0),
+    ("tiny", "q1"): (16, 0, 0), ("paged", "q3"): (0, 0, 0),
 }
 # counts that depend on the scale factor, through the planner's row
 # estimates. q12's join is collected at SF 0.01 but partitioned at SF1, its
@@ -499,9 +549,14 @@ def run_counted(ctx, sql: str) -> dict:
     grouped_sums was given, each presum_safe call's (scale in, scale out),
     the aggregate stages whose group count k is in (0, MASKED_SEG_K] (the
     ones that launch it), the schema of every batch encoded for the device,
-    the leaf caches' hits and misses, and on the card the peak of device
-    memory allocated during the run (``torch.cuda.max_memory_allocated``,
-    cached inputs of earlier runs included) and what was allocated before."""
+    the leaf caches' hits and misses, the memory governor's report, and on
+    the card the peak of device memory allocated during the run and what was
+    allocated before. The engine resets the allocator's peak at each device
+    stage to measure the stage (``op.HbmPeak.max_bytes``), so the run's peak
+    is the engine's ``op.DevicePeak.max_bytes``, which folds in the
+    allocator's peak before every reset (cached inputs of earlier runs
+    included)."""
+    import ballista_tpu_torch.engine.memory_model as MM
     import ballista_tpu_torch.engine.torch_engine as TE
     import ballista_tpu_torch.ops.grouped_sums as GS
     import ballista_tpu_torch.ops.kernels_torch as KT
@@ -512,6 +567,9 @@ def run_counted(ctx, sql: str) -> dict:
     small_k = [0]
     real_gs, real_ps, real_compute = GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute
     real_enc = KT.encode_host_batch
+    real_est, real_meas = MM.estimate_program_bytes, MM.measured_program_bytes
+    stage_bytes: list = []  # (estimate, measured peak) of each device stage
+    ests: list = []
 
     def gs(vals, masks, ids, k):
         dtype = next((v.dtype for v in vals if v is not None), torch.int64)
@@ -532,11 +590,20 @@ def run_counted(ctx, sql: str) -> dict:
         encoded.append(tuple(batch.schema.names))
         return real_enc(batch, pad)
 
+    def est(plan, leaves):
+        ests.append(real_est(plan, leaves))
+        return ests[-1]
+
+    def meas(device, base_bytes, resident_bytes=0):
+        stage_bytes.append((ests[-1], real_meas(device, base_bytes, resident_bytes)))
+        return stage_bytes[-1][1]
+
     caches = (TE._ENC_CACHE, TE._DEV_CACHE)
     before = [(c.hits, c.misses) for c in caches]
     on_card = torch.cuda.is_available() and ctx.device.startswith("cuda")
     GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute = gs, ps, compute
     KT.encode_host_batch = enc
+    MM.estimate_program_bytes, MM.measured_program_bytes = est, meas
     try:
         if on_card:
             torch.cuda.synchronize()
@@ -547,16 +614,17 @@ def run_counted(ctx, sql: str) -> dict:
         got = ctx.sql(sql).collect()
         wall = time.time() - t0
         launches = GS.launches
-        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        peak = ctx.last_engine_metrics.get("op.DevicePeak.max_bytes", 0.0) if on_card else 0
     finally:
         GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute = real_gs, real_ps, real_compute
         KT.encode_host_batch = real_enc
+        MM.estimate_program_bytes, MM.measured_program_bytes = real_est, real_meas
     hits = {name: (c.hits - h, c.misses - m)
             for name, c, (h, m) in zip(("encode", "device"), caches, before)}
     return {"table": got, "wall": wall, "launches": launches, "shapes": shapes,
             "presums": presums, "small_k_stages": small_k[0], "encoded": encoded,
-            "cache": hits, "peak_bytes": peak, "base_bytes": base,
-            "metrics": dict(ctx.last_engine_metrics)}
+            "cache": hits, "peak_bytes": peak, "base_bytes": base, "stage_bytes": stage_bytes,
+            "metrics": dict(ctx.last_engine_metrics), "report": ctx.last_memory_report}
 
 
 def _physical(ctx, sql: str):
@@ -616,6 +684,16 @@ def check_run(path: str, q: str, run: str, r: dict, parts: int, fused: tuple,
         raise AssertionError(f"{tag}: grouped_sums never launched")
     if path == "tiny" and m.get("op.HostTinyStage.count", 0.0) != SHUFFLE_PARTITIONS:
         raise AssertionError(f"{tag}: {m.get('op.HostTinyStage.count', 0.0):g} tiny stages")
+    if path == "paged":
+        actions = [d.action for d in r["report"].decisions]
+        if "paged" not in actions:
+            raise AssertionError(f"{tag}: governor verdicts {actions}, no paged join")
+        if not (m.get("op.PagedJoin.count", 0.0) >= 1 and m.get("op.PagedJoin.passes", 0.0) >= 2):
+            raise AssertionError(f"{tag}: paged joins {m.get('op.PagedJoin.count', 0.0):g}, "
+                                 f"passes {m.get('op.PagedJoin.passes', 0.0):g}")
+    elif r["report"] is not None and [d for d in r["report"].decisions if d.action != "fits"]:
+        # the auto-detected budget (or none) leaves every other path's plan as it was
+        raise AssertionError(f"{tag}: governor verdicts {r['report'].as_dict()}")
     if path == "default" and q in CACHED and run == "warm":
         # no scan output and no fused input encoded again: only the fused
         # result, once per partition of the stage above it
@@ -624,6 +702,23 @@ def check_run(path: str, q: str, run: str, r: dict, parts: int, fused: tuple,
         sent, cold_sent = m["op.DeviceTransfer.bytes"], cold["metrics"]["op.DeviceTransfer.bytes"]
         if not sent < 0.01 * cold_sent:
             raise AssertionError(f"{tag}: transferred {sent:g} bytes, cold {cold_sent:g}")
+
+
+def paged_budget(ctx, sql: str) -> int:
+    """A quarter of the largest per-partition program of the plan's
+    partitioned joins, by the port's own ``estimate_join_program`` at the
+    planner's row estimates (the table statistics) over the plan's shuffle
+    partitions."""
+    from ballista_tpu_torch.engine.memory_model import estimate_join_program
+    from ballista_tpu_torch.plan import physical as P
+
+    ests = []
+    for j in P.walk_physical(_physical(ctx, sql)):
+        if isinstance(j, P.HashJoinExec) and not j.collect_build:
+            n = j.left.partitioning.n
+            ests.append(estimate_join_program(j.left.schema(), j.left.est_rows // n,
+                                              j.right.schema(), j.right.est_rows // n, j.how))
+    return max(ests) // 4
 
 
 def run_slice(device: str, tables: dict, sf: float, parts: int, tag: str,
@@ -663,6 +758,11 @@ def run_slice(device: str, tables: dict, sf: float, parts: int, tag: str,
             TE.clear_caches()
         for q in queries:
             sql, expect = want[q]
+            if path == "paged":
+                budget = paged_budget(ctx, sql)
+                ctx.config.set(BUDGET_KEY, str(budget))
+                print(f"paged {q}: device budget {budget} bytes, a quarter of its largest "
+                      "join's estimate at 16 partitions", flush=True)
             fused = expected_fused(path, q, sf)
             plan = _physical(ctx, sql)
             finals = [n for n in P.walk_physical(plan)
@@ -682,19 +782,153 @@ def run_slice(device: str, tables: dict, sf: float, parts: int, tag: str,
     return out, prof
 
 
-def profile_run(ctx, sql: str) -> dict:
+def run_windows(device: str, tables: dict, tag: str, profile: bool = False):
+    """The windows path: each of WINDOW_QUERIES through the torch engine
+    with default settings, cold then warm, held against the host engine
+    (check_window_result) and to zero host fallbacks, at least one device
+    stage and one grouped_sums launch per aggregate stage of at most 32
+    groups; W1's and W2's counts and sums equal window_exact's. Returns
+    {("windows", query, run): run_counted's record} and, with ``profile``,
+    {("windows", query): profile_run's record} of a warm run, with the
+    device time inside the window functions, their sorts, segmented scans
+    and frames."""
+    import ballista_tpu_torch.ops.kernels_torch as KT
+    from ballista_tpu_torch.client.context import BallistaContext
+
+    host = BallistaContext.standalone(backend="numpy")
+    ctx = BallistaContext.standalone(device=device)
+    for name, location in tables.items():
+        host.register_parquet(name, location)
+        ctx.register_parquet(name, location)
+    exact = window_exact(tables)
+    owners = {"window": (KT, "_one_window_dev"), "window sort": (KT, "_lex_order"),
+              "window scan": (KT, "_seg_scan"), "window frames": (KT, "_frame_aggregate_dev")}
+    out, prof = {}, {}
+    for q, sql in WINDOW_QUERIES.items():
+        t0 = time.time()
+        expect = host.sql(sql).collect()
+        print(f"{q} host engine: {time.time() - t0:.3f} s, {expect.num_rows} rows", flush=True)
+        for run in ("cold", "warm"):
+            r = run_counted(ctx, sql)
+            report_run("windows", q, run, r, tag)
+            check_window_result(r["table"], expect, q, exact.get(q, {}))
+            m, what = r["metrics"], f"windows {q} {run}"
+            if m.get("op.HostFallback.count", 0.0) != 0.0 or m.get("op.DeviceExecute.count", 0) < 1:
+                raise AssertionError(f"{what}: {m.get('op.HostFallback.count', 0.0):g} host "
+                                     f"fallbacks, {m.get('op.DeviceExecute.count', 0):g} stages")
+            if r["launches"] != r["small_k_stages"] or (q in WINDOW_LAUNCHING
+                                                        and r["launches"] <= 0):
+                raise AssertionError(f"{what}: {r['launches']} grouped_sums launches in "
+                                     f"{r['small_k_stages']} aggregate stages of k <= 32")
+            out[("windows", q, run)] = r
+        if profile:
+            prof[("windows", q)] = profile_run(ctx, sql, owners)
+    return out, prof
+
+
+def window_exact(tables: dict) -> dict:
+    """The window queries' decimal sums and averages computed exactly,
+    independently of the port: numpy int64 sums of hundredths over the
+    parquet files, converted to the nearest double once at the end.
+    {query: {column: values in the order of the query's non-float
+    columns}}. W1: the top line of each order (the highest price; its sum
+    does not depend on how ties break). W2's running sum: each customer's
+    orders by date, a date's orders sharing the sum through the last of
+    them. W3's average discount of the supplier's lines priced within
+    100.00 of the line's price, both ends included."""
+    li = _read(tables, "lineitem", ["l_orderkey", "l_extendedprice"])
+    key, price = li["l_orderkey"], _hundredths(li["l_extendedprice"])
+    o = np.lexsort((-price, key))
+    first = np.concatenate([[True], key[o][1:] != key[o][:-1]])
+    w1 = {"n": [int(first.sum())], "top": [int(price[o][first].sum()) / 100]}
+
+    od = _read(tables, "orders", ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"])
+    cust, day = od["o_custkey"], od["o_orderdate"]
+    o = np.lexsort((day, cust))
+    cents = np.cumsum(_hundredths(od["o_totalprice"])[o])
+    idx = np.arange(len(o))
+    seg = np.concatenate([[True], cust[o][1:] != cust[o][:-1]])
+    peer = seg | np.concatenate([[True], day[o][1:] != day[o][:-1]])
+    seg_first = np.maximum.accumulate(np.where(seg, idx, 0))
+    run = cents - np.where(seg_first > 0, cents[seg_first - 1], 0)
+    nxt = np.concatenate([np.where(peer, idx, len(o))[1:], [len(o)]])
+    peer_last = np.minimum.accumulate(nxt[::-1])[::-1] - 1
+    by_order = np.empty(len(o), np.int64)
+    by_order[o] = run[peer_last]
+    w2 = {"run": by_order[np.argsort(od["o_orderkey"], kind="stable")] / 100}
+
+    li = _read(tables, "lineitem", ["l_orderkey", "l_linenumber", "l_suppkey",
+                                    "l_extendedprice", "l_discount", "l_shipdate"])
+    m = li["l_shipdate"] < _day("1993-01-01")
+    price, disc = _hundredths(li["l_extendedprice"][m]), _hundredths(li["l_discount"][m])
+    # (supplier, price) as one sorted int64: a supplier's prices lie below
+    # 2^32 cents, so a window of 100.00 never reaches another supplier's
+    key = li["l_suppkey"][m].astype(np.int64) * (1 << 32) + price
+    o = np.argsort(key, kind="stable")
+    ks = key[o]
+    lo = np.searchsorted(ks, ks - 10_000, "left")
+    hi = np.searchsorted(ks, ks + 10_000, "right")
+    cs = np.concatenate([[0], np.cumsum(disc[o])])
+    avg = np.empty(len(o))
+    avg[o] = [int(s) / (100 * int(c)) for s, c in zip(cs[hi] - cs[lo], hi - lo)]
+    w3 = {"disc": avg[np.lexsort((li["l_linenumber"][m], li["l_orderkey"][m]))]}
+    return {"W1": w1, "W2": w2, "W3": w3}
+
+
+def check_window_result(got, host, q: str, exact: dict) -> None:
+    """``got`` ordered by its non-float columns (a unique key in every window
+    query). Columns ``exact`` holds equal its values (WINDOW_AVERAGES within
+    half a unit of the 8th decimal). Every other column equals the host
+    engine's, ordered the same way: ints, strings and dates exactly, floats
+    finite and within 1e-9 relative. The host engine is not held to the
+    exact columns: it sums decimals in f64, takes running sums as
+    differences of prefix sums and bounds RANGE frames by f64 key plus
+    offset, which at SF1 drift past 1e-9 or move a frame's edge row."""
+    import pyarrow as pa
+
+    if got.schema.names != host.schema.names or got.num_rows != host.num_rows \
+            or got.num_rows == 0:
+        raise AssertionError(f"{q}: {got.schema.names} x {got.num_rows}, host "
+                             f"{host.schema.names} x {host.num_rows}")
+    keys = [(f.name, "ascending") for f in got.schema if not pa.types.is_floating(f.type)]
+    if keys:
+        got, host = got.sort_by(keys), host.sort_by(keys)
+    for name in got.schema.names:
+        g = got.column(name).to_numpy(zero_copy_only=False)
+        h = host.column(name).to_numpy(zero_copy_only=False)
+        if name in exact:
+            want, against = np.asarray(exact[name]), "exact"
+            if name in WINDOW_AVERAGES.get(q, ()):
+                # half a unit of the 8th decimal, and 2 ulp for the conversions
+                off = np.abs(g - want) > 0.5e-8 + 2 * np.spacing(np.abs(want))
+            else:
+                off = g != want
+        else:
+            want, against = h, "host engine"
+            off = ~np.isclose(g, h, rtol=1e-9, atol=0) if g.dtype.kind == "f" else g != h
+        if g.dtype.kind == "f":
+            off = off | ~np.isfinite(g)
+        if off.any():
+            bad = np.nonzero(off)[0][:5]
+            raise AssertionError(f"{q}.{name}: {int(off.sum())} rows, e.g. {bad.tolist()}: "
+                                 f"{g[bad].tolist()} vs {against} {want[bad].tolist()}")
+
+
+def profile_run(ctx, sql: str, owners: dict = None) -> dict:
     """One run under torch.profiler: its wall, the device busy time in it
     (the sum of CUDA kernel and copy time the profiler records), the five
     busiest device ops, and the device time of the kernels launched inside
-    the join probe, sorted grouping and segment sums, which run inside a
-    record_function of that name for this run only."""
+    each of ``owners`` ({label: (module or class, function name)}; by
+    default the join probe, sorted grouping and segment sums), each run
+    inside a record_function of its label for this run only."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import ballista_tpu_torch.engine.torch_engine as TE
     import ballista_tpu_torch.ops.kernels_torch as KT
 
-    owners = {"join probe": (TE, "_probe_join"), "sorted grouping": (KT, "group_ids_sorted"),
-              "segment sums": (KT.SegSums, "compute")}
+    if owners is None:
+        owners = {"join probe": (TE, "_probe_join"), "sorted grouping": (KT, "group_ids_sorted"),
+                  "segment sums": (KT.SegSums, "compute")}
     saved = []
     for label, (owner, attr) in owners.items():
         real = getattr(owner, attr)
@@ -785,6 +1019,21 @@ def main_runs(results: dict) -> dict:
 def report_run(path: str, q: str, run: str, r: dict, card: str) -> None:
     m = r["metrics"]
     fused = {k.split(".")[1]: m.get(k, 0.0) for k in FUSED_KEYS}
+    budget = r["report"].budget_bytes if r["report"] is not None else 0
+    # per stage, measured peak over estimate, for the stages of 1 MB or more
+    # estimated (below that the allocator's block sizes dominate the peak)
+    big = [(e, p) for e, p in r["stage_bytes"] if e >= 1 << 20]
+    ratios = sorted(p / e for e, p in big)
+    widest = max(big, default=(0, 0))
+    print(f"{path} {q} {run}: device budget {budget} bytes, largest stage estimate "
+          f"(op.HbmEst.max_bytes) {m.get('op.HbmEst.max_bytes', 0.0):.0f}, largest stage "
+          f"peak measured (op.HbmPeak.max_bytes) {m.get('op.HbmPeak.max_bytes', 0.0):.0f}; "
+          f"the stage of the largest estimate: {widest[0]} estimated, {widest[1]} measured; "
+          f"measured / estimated over {len(ratios)} stages of >= 1 MB: "
+          + (f"median {ratios[len(ratios) // 2]:.3f}, range {ratios[0]:.3f}-{ratios[-1]:.3f}"
+             if ratios else "none")
+          + f"; paged joins {m.get('op.PagedJoin.count', 0.0):g} in "
+          f"{m.get('op.PagedJoin.passes', 0.0):g} passes [{card}]", flush=True)
     print(f"{path} {q} {run}: wall {r['wall']:.3f} s, device stages "
           f"{m.get('op.DeviceExecute.count', 0.0):g}, grouped_sums launches "
           f"{r['launches']} (aggregate stages of k <= 32: {r['small_k_stages']}), "
@@ -834,6 +1083,7 @@ def rehearse(data_dir: str, parts: int = 2) -> None:
     try:
         check_hash_buckets("cpu", tables)
         results, _ = run_slice("cpu", tables, 0.01, parts, "cpu")
+        results.update(run_windows("cpu", tables, "cpu")[0])
     finally:
         GS.grouped_sums_multi = real
     report_runs(results, {}, "cpu")
@@ -879,6 +1129,13 @@ def main() -> int:
     t0 = time.time()
     results, prof = run_slice("cuda", tables, SF, PARTS, card, profile=True)
     print(f"slice phase {time.time() - t0:.1f} s", flush=True)
+
+    phase("windows")
+    t0 = time.time()
+    wresults, wprof = run_windows("cuda", tables, card, profile=True)
+    results.update(wresults)
+    prof.update(wprof)
+    print(f"windows phase {time.time() - t0:.1f} s", flush=True)
     report_runs(results, prof, card)
     mains = main_runs(results)
     by_path = {k: r["launches"] for k, r in mains.items()}

@@ -418,6 +418,56 @@ def test_outer_joins_with_duplicate_runs_on_card_match_cpu(card, how):
         assert _sorted_rows(got) == _sorted_rows(on_cpu.sql(sql).collect()), sql
 
 
+@pytest.mark.parametrize("q", ["W1", "W3"])
+def test_windows_on_card_match_cpu(card, sf001_tables, q):
+    """chip_smoke's W1 (the top line per order: row_number over two order
+    keys, a filter and a global aggregate) and W3 (moving ROWS frames, the
+    sparse table's max, a RANGE frame over a decimal key) on the card
+    against the CPU run: every value equal (decimal sums, maxima and
+    averages are exact scaled int64 on both)."""
+    from chip_smoke import WINDOW_QUERIES
+
+    from ballista_tpu_torch.client.context import BallistaContext
+
+    on_card = BallistaContext.standalone()
+    on_cpu = BallistaContext.standalone(device="cpu")
+    for c in (on_card, on_cpu):
+        for t, path in sf001_tables.items():
+            c.register_parquet(t, path)
+    got = on_card.sql(WINDOW_QUERIES[q]).collect()
+    m = on_card.last_engine_metrics
+    assert m.get("op.HostFallback.count", 0.0) == 0.0
+    assert m.get("op.HbmPeak.max_bytes", 0.0) > 0 and m.get("op.HbmEst.max_bytes", 0.0) > 0
+    assert _sorted_rows(got) == _sorted_rows(on_cpu.sql(WINDOW_QUERIES[q]).collect())
+
+
+def test_paged_join_on_card_matches_unpaged(card, sf001_tables):
+    """q3 with its joins partitioned, under a budget that pages the
+    lineitem-orders join: the same rows as without a budget, every pass on
+    the card."""
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+
+    settings = {"ballista.optimizer.broadcast_rows_threshold": "0",
+                "ballista.tpu.ici_shuffle": "false",
+                "ballista.engine.max_shuffle_partitions": "16"}
+    with open(os.path.join(REPO, "benchmarks", "queries", "q3.sql")) as f:
+        sql = f.read()
+    out = {}
+    for budget in ("-1", "100000"):
+        ctx = BallistaContext.standalone(
+            BallistaConfig(dict(settings, **{"ballista.engine.hbm_budget_bytes": budget})))
+        for t, path in sf001_tables.items():
+            ctx.register_parquet(t, path)
+        out[budget] = (ctx.sql(sql).collect(), ctx)
+    (plain, _), (paged, pctx) = out["-1"], out["100000"]
+    m = pctx.last_engine_metrics
+    assert "paged" in [d.action for d in pctx.last_memory_report.decisions]
+    assert m.get("op.PagedJoin.count", 0.0) >= 1 and m.get("op.PagedJoin.passes", 0.0) >= 2
+    assert m.get("op.HostFallback.count", 0.0) == 0.0
+    assert paged.equals(plain)
+
+
 def _sorted_rows(table) -> list:
     rows = list(zip(*(table.column(c).to_pylist() for c in table.column_names)))
     return sorted(rows, key=lambda r: tuple((v is None, v if v is not None else 0) for v in r))

@@ -96,20 +96,51 @@ for t in TPCH_TABLES:
 out = ctx.sql(open(os.path.join({repo!r}, "benchmarks", "queries", "q1.sql")).read()).collect()
 m = ctx.last_engine_metrics
 assert m.get("op.HostFallback.count", 0.0) == 0.0, m
+print("ROWS", out.num_rows)
+
+# a window on the device: the top line of every order
+top = ctx.sql("select count(*) as n from (select row_number() over (partition by l_orderkey "
+              "order by l_extendedprice desc, l_linenumber) as rn from lineitem) t "
+              "where rn = 1").collect()
+assert ctx.last_engine_metrics.get("op.HostFallback.count", 0.0) == 0.0
+assert top.column("n")[0].as_py() == ctx.sql(
+    "select count(distinct l_orderkey) as n from lineitem").collect().column("n")[0].as_py()
+
+# q3 with its lineitem-orders join paged under a small budget
+from ballista_tpu_torch.config import BallistaConfig
+settings = {{"ballista.optimizer.broadcast_rows_threshold": "0",
+            "ballista.tpu.ici_shuffle": "false", "ballista.engine.max_shuffle_partitions": "16"}}
+q3 = open(os.path.join({repo!r}, "benchmarks", "queries", "q3.sql")).read()
+runs = []
+for budget in ("-1", "100000"):
+    c = BallistaContext.standalone(
+        BallistaConfig(dict(settings, **{{"ballista.engine.hbm_budget_bytes": budget}})),
+        device="cpu")
+    for t in TPCH_TABLES:
+        c.register_parquet(t, os.path.join({data!r}, t))
+    runs.append((c.sql(q3).collect(), c))
+(plain, _), (paged, pc) = runs
+assert paged.equals(plain)
+pm = pc.last_engine_metrics
+assert "paged" in [d.action for d in pc.last_memory_report.decisions]
+assert pm["op.PagedJoin.count"] >= 1 and pm["op.PagedJoin.passes"] >= 2, pm
+assert pm.get("op.HostFallback.count", 0.0) == 0.0, pm
+print("PAGED", int(pm["op.PagedJoin.passes"]))
 assert not any(k == "jax" or k.startswith(("jax.", "ballista_tpu."))
                for k, v in sys.modules.items() if v is not None)
-print("ROWS", out.num_rows)
 """
 
 
 def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
+    """q1, a device window and a paged q3 join with JAX and the JAX package
+    unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", _Q1_BLOCKED.format(repo=REPO, data=torch_tpch_dir)],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "ROWS 4" in proc.stdout
+    assert "ROWS 4" in proc.stdout and "PAGED" in proc.stdout
 
 
 def test_standalone_defaults_to_cuda_and_raises_without_it():
