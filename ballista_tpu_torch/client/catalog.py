@@ -141,10 +141,11 @@ class Catalog:
     ) -> TableMeta:
         name = name.lower()
         if "://" in path:
-            raise PlanningError(
-                f"object-store URLs are not ported to ballista_tpu_torch yet: {path!r}"
-            )
-        if os.path.isdir(path):
+            # object-store URL (gs://, s3://, hdfs://): resolve via the registry
+            from ballista_tpu_torch.utils.object_store import list_parquet_files
+
+            _, files = list_parquet_files(path)
+        elif os.path.isdir(path):
             files = sorted(glob.glob(os.path.join(path, "*.parquet")))
         else:
             files = sorted(glob.glob(path)) if any(c in path for c in "*?[") else [path]
@@ -152,6 +153,11 @@ class Catalog:
             raise PlanningError(f"no parquet files at {path!r}")
 
         def _pf(f: str) -> pq.ParquetFile:
+            if "://" in f:
+                from ballista_tpu_torch.utils.object_store import GLOBAL_OBJECT_STORES
+
+                fs, p = GLOBAL_OBJECT_STORES.resolve(f)
+                return pq.ParquetFile(fs.open_input_file(p))
             return pq.ParquetFile(f)
 
         schema = Schema.from_arrow(_pf(files[0]).schema_arrow)

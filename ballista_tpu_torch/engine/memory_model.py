@@ -16,7 +16,12 @@ one stage program costs in device bytes, used at three layers:
 * **trace time (torch engine)** — :func:`estimate_program_bytes` re-estimates
   a stage from its ACTUAL leaf encodings (exact pads, duplicate widths,
   ranges) just before it runs; the engine records it as
-  ``op.HbmEst.max_bytes`` beside the measured ``op.HbmPeak.max_bytes``.
+  ``op.HbmEst.max_bytes``, equal to the JAX engine's. Eager torch holds more
+  than a compiled program (no operator fuses), so
+  :func:`estimate_eager_program_bytes` adds those terms; the engine records
+  it as ``op.HbmEstEager.max_bytes`` beside the measured
+  ``op.HbmPeak.max_bytes`` and pages a stage whose eager estimate exceeds
+  the budget.
 
 * **the fused exchange** — :func:`estimate_ici_exchange_bytes` is the
   per-device footprint a fused exchange is checked against before it runs.
@@ -25,7 +30,8 @@ The model is deliberately simple and conservative: padded power-of-two leaf
 buckets times static column widths (mirroring ``encode_host_batch``), the
 join's gather and expansion scratch, the aggregate's id and sort scratch and
 a range- or dictionary-bounded group table, plus the program output. Its
-numbers equal the JAX package's for the same plan and leaves.
+numbers equal the JAX package's for the same plan and leaves; the eager
+terms are the port's own.
 
 The device probes are torch's: the budget comes from the card's total
 memory (``torch.cuda.mem_get_info``), the measured side from the CUDA
@@ -41,7 +47,9 @@ import torch
 
 from ballista_tpu_torch.ops.kernels_torch import bucket_size
 from ballista_tpu_torch.plan import physical as P
-from ballista_tpu_torch.plan.expr import Col, unalias
+from ballista_tpu_torch.plan.expr import (
+    Agg, BinaryOp, Case, Cast, Col, Func, InList, IsNull, Like, Not, unalias, walk,
+)
 from ballista_tpu_torch.plan.schema import DataType, Schema
 
 log = logging.getLogger("ballista.memory")
@@ -177,6 +185,19 @@ def estimate_ici_exchange_bytes(schema: Schema, est_rows: int, n_devices: int) -
     device memory."""
     per_dev_rows = max(1, int(est_rows) // max(1, n_devices))
     return 3 * padded_batch_bytes(schema, per_dev_rows)
+
+
+def estimate_megastage_bytes(
+    segments: list[list[tuple[Schema, int]]], n_devices: int
+) -> int:
+    """Per-device footprint of a whole-query megastage program: the running
+    MAX over its segments, each the ``(schema, est_rows)`` exchanges live at
+    once (a join's two input exchanges, then the agg-state exchange). The
+    stage planner's megastage promotion prices a chain with it."""
+    return max(
+        (sum(estimate_ici_exchange_bytes(s, r, n_devices) for s, r in seg) for seg in segments),
+        default=0,
+    )
 
 
 def fmt_bytes(n: float) -> str:
@@ -548,7 +569,62 @@ def estimate_program_bytes(plan: P.PhysicalPlan, leaves: dict) -> int:
     leaves (``TorchEngine._collect_leaves``: id -> (kind, EncodedBatch,
     extra, cache key, node), a build leaf's ``extra`` its (sorted build
     keys, duplicate bucket)): the encoded leaf arrays (byte-exact), the
-    program output, and the widest single operator's scratch."""
+    program output, and the widest single operator's scratch. Equals the
+    JAX package's estimate of the same stage (``op.HbmEst.max_bytes``)."""
+    return _estimate(plan, leaves, eager=False)
+
+
+def estimate_eager_program_bytes(plan: P.PhysicalPlan, leaves: dict) -> int:
+    """:func:`estimate_program_bytes` plus what eager torch holds that a
+    compiled XLA program does not (``op.HbmEstEager.max_bytes``; the
+    engine's safety net pages against it). No operator fuses, so each
+    computed expression's result and temporaries are tensors of their own:
+    a projection's computed columns, every aggregate argument (all are live
+    until the stage's one ``SegSums`` call) with its mask, a filter's
+    predicate temporaries. A join inside the stage holds its full output
+    while its consumer runs. A sort gathers every key and the whole batch
+    through its permutation. A window expression holds its partition and
+    order keys, the permutation chain that sorts them, its output column
+    and, for a framed min or max, the sparse table's ``levels x n x 8``
+    bytes (``_window_bytes``)."""
+    return _estimate(plan, leaves, eager=True)
+
+
+# expression nodes that materialize a tensor when evaluated eagerly
+_EAGER_OPS = (BinaryOp, Case, Cast, Func, InList, IsNull, Like, Not)
+
+
+def _expr_temps(e) -> int:
+    """Tensors an eager evaluation of ``e`` creates (one per operator)."""
+    return sum(1 for n in walk(e) if isinstance(n, _EAGER_OPS))
+
+
+def _window_bytes(node: P.WindowExec, pad: int) -> int:
+    """Eager device bytes of a window node over ``pad`` rows beyond its
+    input: each expression's output column and its scratch. The expressions
+    run one after another, but their scratch is summed: the transients of
+    the sort chain and the frame gathers are bounded here, not modelled
+    tensor by tensor, and the sum is what covered every window stage's
+    measured peak on the H100 (PERF.md section 6)."""
+    total = 0
+    for e in node.window_exprs:
+        wf = unalias(e)
+        keys = 1 + len(wf.partition_by) + len(wf.order_by)   # row validity first
+        exprs = list(wf.args) + list(wf.partition_by) + [o for o, _ in wf.order_by]
+        # per stable argsort pass: the key gathered through the permutation,
+        # the sorted values and indices, the composed permutation
+        scratch = 32 * pad * keys + 8 * pad * sum(_expr_temps(x) for x in exprs)
+        if wf.frame is not None and wf.fn in ("min", "max"):
+            # the sparse table's levels, and a gather of each level's ends
+            scratch += 2 * max(1, pad.bit_length()) * pad * 8
+        elif wf.fn in ("sum", "avg", "count"):
+            # prefix sums and counts, and the frame's two bounds
+            scratch += 4 * 8 * pad
+        total += scratch + 9 * pad               # + the output: data, null mask
+    return total
+
+
+def _estimate(plan: P.PhysicalPlan, leaves: dict, eager: bool) -> int:
     args = 0
     for (_kind, enc, extra, _ck, _node) in leaves.values():
         args += sum(int(getattr(a, "nbytes", 0) or 0) for a in enc.arrays)
@@ -561,9 +637,15 @@ def estimate_program_bytes(plan: P.PhysicalPlan, leaves: dict) -> int:
         if extra is not None:
             args += int(getattr(extra[0], "nbytes", 0) or 0)
     scratch = {"m": 0}
+    # eager-torch bytes beyond the JAX model: held together along the chain
+    held = {"b": 0}
 
     def note(b: int) -> None:
         scratch["m"] = max(scratch["m"], int(b))
+
+    def hold(b: int) -> None:
+        if eager:
+            held["b"] += int(b)
 
     def w(schema: Schema) -> int:
         return row_data_bytes(schema) + 1
@@ -578,9 +660,11 @@ def estimate_program_bytes(plan: P.PhysicalPlan, leaves: dict) -> int:
         if isinstance(node, P.FilterExec):
             pad, _ = walk(node.input)
             note(2 * pad)                 # mask + compaction index
+            hold(8 * pad * _expr_temps(node.predicate))
             return pad, node.schema()
         if isinstance(node, P.ProjectExec):
             pad, _ = walk(node.input)
+            hold(8 * pad * sum(_expr_temps(e) for e in node.exprs))
             return pad, node.schema()     # elementwise: fuses into consumers
         if isinstance(node, P.HashAggregateExec):
             pad, _ = walk(node.input)
@@ -588,6 +672,15 @@ def estimate_program_bytes(plan: P.PhysicalPlan, leaves: dict) -> int:
             k_pad = bucket_size(max(1, min(pad, bound) if bound else pad))
             # group ids / sorted keys / segment offsets + the group table
             note(4 * 8 * pad + k_pad * w(node.schema()))
+            for e in list(node.group_exprs) + list(node.agg_exprs):
+                a = unalias(e)
+                if isinstance(a, Agg):
+                    # the evaluated argument (or its scaled / widened copy)
+                    # and its mask, live until the stage's one SegSums call
+                    hold(pad * (8 * (_expr_temps(a.expr) + 1) + 1) if a.expr is not None
+                         else pad)
+                else:
+                    hold(8 * pad * _expr_temps(a))
             return k_pad, node.schema()
         if isinstance(node, P.HashJoinExec):
             pad_p, _ = walk(node.left)
@@ -602,17 +695,27 @@ def estimate_program_bytes(plan: P.PhysicalPlan, leaves: dict) -> int:
                 sc += pad_p * dup * bw + pad_p * (dup - 1) * w(node.left.schema())
             note(sc)
             if node.how in ("semi", "anti"):
-                return pad_p, node.schema()
-            if node.how in ("right", "full"):
+                out_pad = pad_p
+            elif node.how in ("right", "full"):
                 out_pad = bucket_size(pad_p * dup + pad_b)
-                return out_pad, node.schema()
-            return pad_p * dup, node.schema()
+            else:
+                out_pad = pad_p * dup
+            if node is not plan:
+                # an inner join's output stays live under its consumer (the
+                # program's own output is counted once, below)
+                hold(out_pad * w(node.schema()))
+            return out_pad, node.schema()
         if isinstance(node, P.CrossJoinExec):
             pad_p, _ = walk(node.left)
             return pad_p, node.schema()
         if isinstance(node, (P.SortExec, P.WindowExec)):
             pad, _ = walk(node.input)
             note(2 * 8 * pad)             # sort keys + permutation
+            if isinstance(node, P.WindowExec):
+                hold(_window_bytes(node, pad))
+            else:
+                hold(16 * pad * len(node.keys) + pad * w(node.schema())
+                     + 8 * pad * sum(_expr_temps(k) for k, _ in node.keys))
             return pad, node.schema()
         kids = node.children()
         if kids:
@@ -621,7 +724,7 @@ def estimate_program_bytes(plan: P.PhysicalPlan, leaves: dict) -> int:
 
     out_pad, out_schema = walk(plan)
     output = out_pad * w(out_schema)
-    return int(args + scratch["m"] + output)
+    return int(args + scratch["m"] + output + held["b"])
 
 
 def measured_program_bytes(device, base_bytes: int, resident_bytes: int = 0) -> int:

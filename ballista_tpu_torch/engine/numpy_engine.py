@@ -7,6 +7,8 @@ the numpy engine mirrors that so both backends share semantics).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -220,11 +222,294 @@ class NumpyEngine(ExecutionEngine):
 
     # ---- streaming (bounded-memory) path ---------------------------------------------
     def execute_partition_stream(self, plan: P.PhysicalPlan, partition: int):
-        """One-shot execution as a one-chunk stream. Chunked streaming over a
-        shuffle read is not ported yet."""
-        if any(isinstance(n, P.ShuffleReaderExec) for n in P.walk_physical(plan)):
-            raise ExecutionError("streamed shuffle reads are not ported to ballista_tpu_torch yet")
-        yield self.execute_partition(plan, partition)
+        """Chunked execution for streamable stage subtrees. Streams when the
+        subtree has a shuffle-read source (the case where partitions can be
+        arbitrarily fat); otherwise falls back to the one-shot path.
+        Chunk-wise ops: filter, project, probe-side joins; fold ops:
+        final aggregate (partial-state merge), top-k sort; coalesce chains
+        its inputs without concatenating. (Reference: shuffle_reader.rs:136 —
+        the operator tree above a shuffle read polls a record-batch stream.)"""
+        if not self._stream_enabled() or not any(
+            isinstance(n, P.ShuffleReaderExec) for n in P.walk_physical(plan)
+        ):
+            yield self.execute_partition(plan, partition)
+            return
+        yield from self._stream(plan, partition)
+
+    def _stream_enabled(self) -> bool:
+        from ballista_tpu_torch.config import BALLISTA_SHUFFLE_STREAM_READ
+
+        return self.config is None or bool(self.config.get(BALLISTA_SHUFFLE_STREAM_READ))
+
+    def _stream(self, plan: P.PhysicalPlan, part: int):
+        """Dispatch with the same per-operator exclusive-time/row metrics as
+        the one-shot path: each ``next()`` on a streamed node is timed with
+        the TLS child-time stack (child generator pulls happen inside it and
+        subtract out). Nodes with no streaming rule fall back to ``_exec``,
+        which records its own metrics."""
+        import time as _time
+
+        make = self._stream_maker(plan, part)
+        if make is None:
+            yield self._exec(plan, part)
+            return
+        inner = make()
+        name = type(plan).__name__
+        stream_t0 = _time.time()
+        busy_s = 0.0
+        rows = 0
+        chunks = 0
+        try:
+            while True:
+                t0 = _time.time()
+                self._op_stack.append([0.0])
+                done = False
+                value = None
+                try:
+                    try:
+                        value = next(inner)
+                    except StopIteration:
+                        done = True
+                finally:
+                    child_time = self._op_stack.pop()[0]
+                    total = _time.time() - t0
+                    busy_s += total
+                    if self._op_stack:
+                        self._op_stack[-1][0] += total
+                with self._lock:
+                    self.op_metrics[f"op.{name}.time_s"] = (
+                        self.op_metrics.get(f"op.{name}.time_s", 0.0)
+                        + max(0.0, total - child_time)
+                    )
+                    if not done:
+                        self.op_metrics[f"op.{name}.output_rows"] = (
+                            self.op_metrics.get(f"op.{name}.output_rows", 0.0)
+                            + value.num_rows
+                        )
+                if done:
+                    return
+                rows += value.num_rows
+                chunks += 1
+                yield value
+        finally:
+            # one span per streamed node covering all its chunk pulls (per-
+            # chunk spans would drown the timeline); the finally also covers
+            # early termination — a LIMIT consumer closing this generator
+            # mid-stream must still leave the operators' spans behind
+            self._record_span(
+                name, stream_t0, busy_s,
+                {"rows": rows, "partition": part, "chunks": chunks,
+                 "streamed": True},
+            )
+
+    def _stream_maker(self, plan: P.PhysicalPlan, part: int):
+        """Return a zero-arg generator factory for nodes with a streaming
+        rule, or None to materialize the subtree via ``_exec``."""
+        if isinstance(plan, P.ShuffleReaderExec):
+            return lambda: self._stream_shuffle_read(plan, part)
+        if isinstance(plan, P.FilterExec):
+            return lambda: self._stream_filter(plan, part)
+        if isinstance(plan, P.ProjectExec):
+            return lambda: self._stream_project(plan, part)
+        if isinstance(plan, P.HashAggregateExec) and plan.mode == "final":
+            return lambda: self._stream_final_agg(plan, part)
+        if isinstance(plan, P.SortExec) and plan.fetch is not None:
+            return lambda: self._stream_topk(plan, part)
+        if (
+            isinstance(plan, P.HashJoinExec)
+            and plan.collect_build
+            and plan.how in ("inner", "left", "semi", "anti")
+        ):
+            return lambda: self._stream_probe_join(plan, part)
+        if isinstance(plan, P.CoalescePartitionsExec):
+            return lambda: self._stream_coalesce(plan)
+        if isinstance(plan, P.LimitExec) and not plan.global_ and plan.n >= 0:
+            return lambda: self._stream_limit(plan, part)
+        return None
+
+    def _stream_shuffle_read(self, plan: P.ShuffleReaderExec, part: int):
+        from ballista_tpu_torch.config import (
+            BALLISTA_SHUFFLE_SPILL_DIR,
+            BALLISTA_SHUFFLE_STREAM_CHUNK_ROWS,
+        )
+        from ballista_tpu_torch.shuffle.feed import FeedStats
+        from ballista_tpu_torch.shuffle.stream import (
+            DEFAULT_CHUNK_ROWS,
+            iter_shuffle_partition,
+        )
+
+        chunk_rows = (
+            self.config.get(BALLISTA_SHUFFLE_STREAM_CHUNK_ROWS)
+            if self.config is not None
+            else DEFAULT_CHUNK_ROWS
+        )
+        spill = (
+            self.config.get(BALLISTA_SHUFFLE_SPILL_DIR) or None
+            if self.config is not None
+            else None
+        )
+        consolidate, pooled = self._dataplane_opts()
+        stats = FeedStats()
+        try:
+            yield from iter_shuffle_partition(
+                plan.partition_locations[part], chunk_rows=chunk_rows,
+                spill_dir=spill, object_store_url=self._object_store_url(),
+                consolidate=consolidate, pooled=pooled,
+                codec=self._shuffle_codec(),
+                pipeline_wait_s=self._pipeline_wait_s(), feed_stats=stats,
+            )
+        finally:
+            self._note_feed_stats(stats)
+
+    def _dataplane_opts(self) -> tuple[bool, bool]:
+        from ballista_tpu_torch.config import (
+            BALLISTA_SHUFFLE_CONSOLIDATE_FETCH,
+            BALLISTA_SHUFFLE_FLIGHT_POOL,
+        )
+
+        if self.config is None:
+            return True, True
+        return (
+            bool(self.config.get(BALLISTA_SHUFFLE_CONSOLIDATE_FETCH)),
+            bool(self.config.get(BALLISTA_SHUFFLE_FLIGHT_POOL)),
+        )
+
+    def _object_store_url(self) -> str:
+        from ballista_tpu_torch.config import BALLISTA_SHUFFLE_OBJECT_STORE_URL
+
+        if self.config is None:
+            return ""
+        return str(self.config.get(BALLISTA_SHUFFLE_OBJECT_STORE_URL) or "")
+
+    def _shuffle_codec(self) -> str:
+        from ballista_tpu_torch.config import BALLISTA_SHUFFLE_COMPRESSION
+
+        if self.config is None:
+            return ""
+        return str(self.config.get(BALLISTA_SHUFFLE_COMPRESSION) or "")
+
+    def _pipeline_wait_s(self) -> float:
+        from ballista_tpu_torch.config import BALLISTA_SHUFFLE_PIPELINE_WAIT_S
+
+        if self.config is None:
+            return 120.0
+        return float(self.config.get(BALLISTA_SHUFFLE_PIPELINE_WAIT_S))
+
+    def _note_feed_stats(self, stats) -> None:
+        """Fold a pipelined read's pending-wait/overlap accounting into the
+        op metrics (docs/shuffle.md): the executor harvests these onto the
+        task status, where the scheduler excludes the wait from the
+        straggler p50 and the stage span reports overlap_ms."""
+        for k, v in stats.as_metrics().items():
+            with self._lock:
+                self.op_metrics[k] = self.op_metrics.get(k, 0.0) + v
+
+    def _stream_filter(self, plan: P.FilterExec, part: int):
+        for b in self._stream(plan.input, part):
+            yield b.filter(to_filter_mask(evaluate(plan.predicate, b)))
+
+    def _stream_project(self, plan: P.ProjectExec, part: int):
+        schema = plan.schema()
+        for b in self._stream(plan.input, part):
+            cols = [evaluate(e, b) for e in plan.exprs]
+            cols = [_coerce(c, f.dtype) for c, f in zip(cols, schema)]
+            yield ColumnBatch(schema, cols, num_rows=b.num_rows)
+
+    AGG_SPILL_BUCKETS = 16
+
+    def _agg_spill_rows(self) -> int:
+        from ballista_tpu_torch.config import BALLISTA_AGG_SPILL_STATE_ROWS
+
+        if self.config is None:
+            return 8_000_000
+        return int(self.config.get(BALLISTA_AGG_SPILL_STATE_ROWS) or 0)
+
+    def _stream_final_agg(self, plan: P.HashAggregateExec, part: int):
+        # fold: merge partial states chunk-by-chunk (state bounded by
+        # distinct-group count), finalize once at the end. When the fold
+        # state itself outgrows the budget (group count ~ row count), switch
+        # to two-phase bucketed aggregation: states spill to hash buckets on
+        # disk, then merge+finalize one bucket at a time — resident memory
+        # is one bucket, groups never straddle buckets (VERDICT r4 #4).
+        from ballista_tpu_torch.engine.spill import PartitionSpill
+
+        budget = self._agg_spill_rows()
+        state: Optional[ColumnBatch] = None
+        spill: Optional[PartitionSpill] = None
+        for chunk in self._stream(plan.input, part):
+            if spill is not None:
+                cs = K.merge_partial_states(chunk, plan.group_exprs, plan.agg_exprs)
+                spill.append_split(cs)
+                continue
+            merged = chunk if state is None else ColumnBatch.concat([state, chunk])
+            state = K.merge_partial_states(merged, plan.group_exprs, plan.agg_exprs)
+            if budget and plan.group_exprs and state.num_rows > budget:
+                spill = PartitionSpill(
+                    self.AGG_SPILL_BUCKETS, list(plan.group_exprs),
+                    self._spill_dir(), salted=True,
+                    compression=self._shuffle_codec(),
+                )
+                spill.append_split(state)
+                state = None
+        if spill is None:
+            if state is None:
+                state = ColumnBatch.empty(plan.input.schema())
+            yield K.aggregate_groups(
+                state, plan.group_exprs, plan.agg_exprs, "final", plan.schema()
+            )
+            return
+        spill.finish()
+        with self._lock:
+            self.op_metrics["op.AggSpill.rows"] = (
+                self.op_metrics.get("op.AggSpill.rows", 0.0) + spill.spilled_rows
+            )
+        try:
+            for b in range(spill.n):
+                bstate: Optional[ColumnBatch] = None
+                for chunk in spill.read_chunks(b):
+                    merged = (
+                        chunk if bstate is None else ColumnBatch.concat([bstate, chunk])
+                    )
+                    bstate = K.merge_partial_states(
+                        merged, plan.group_exprs, plan.agg_exprs
+                    )
+                if bstate is not None and bstate.num_rows:
+                    yield K.aggregate_groups(
+                        bstate, plan.group_exprs, plan.agg_exprs, "final", plan.schema()
+                    )
+        finally:
+            spill.close()
+
+    def _stream_topk(self, plan: P.SortExec, part: int):
+        # top-k fold: keep only the current top `fetch` rows
+        state = None
+        for chunk in self._stream(plan.input, part):
+            merged = chunk if state is None else ColumnBatch.concat([state, chunk])
+            state = K.sort_batch(merged, plan.keys, plan.fetch)
+        yield state if state is not None else ColumnBatch.empty(plan.schema())
+
+    def _stream_probe_join(self, plan: P.HashJoinExec, part: int):
+        # stream the probe side; the collected build side is indexed ONCE
+        build = self._materialized_single(plan.right)
+        prepared = K.prepare_build(build, plan.on)
+        for chunk in self._stream(plan.left, part):
+            yield K.hash_join(
+                chunk, build, plan.on, plan.how, plan.filter, plan.schema(),
+                prepared=prepared,
+            )
+
+    def _stream_coalesce(self, plan: P.CoalescePartitionsExec):
+        for i in range(plan.input.output_partitions()):
+            yield from self._stream(plan.input, i)
+
+    def _stream_limit(self, plan: P.LimitExec, part: int):
+        remaining = plan.n
+        for chunk in self._stream(plan.input, part):
+            if remaining <= 0:
+                return
+            take = chunk if chunk.num_rows <= remaining else chunk.slice(0, remaining)
+            remaining -= take.num_rows
+            yield take
 
     # ---- pipeline breakers ----------------------------------------------------------
     def _materialize(self, plan: P.PhysicalPlan) -> list[ColumnBatch]:
@@ -264,24 +549,72 @@ class NumpyEngine(ExecutionEngine):
         batches = self._materialize(plan)
         return ColumnBatch.concat(batches) if batches else ColumnBatch.empty(plan.schema())
 
+    def _exchange_spill_rows(self) -> int:
+        from ballista_tpu_torch.config import BALLISTA_EXCHANGE_SPILL_ROWS
+
+        if self.config is None:
+            return 1 << 25
+        return int(self.config.get(BALLISTA_EXCHANGE_SPILL_ROWS) or 0)
+
+    def _spill_dir(self) -> Optional[str]:
+        from ballista_tpu_torch.config import BALLISTA_SHUFFLE_SPILL_DIR
+
+        if self.config is None:
+            return None
+        return str(self.config.get(BALLISTA_SHUFFLE_SPILL_DIR) or "") or None
+
     def _repartitioned(self, plan):
         """Materialize a hash exchange (RepartitionExec or in-process
-        ShuffleWriterExec) in memory. Spilling the exchange to disk is not
-        ported yet."""
+        ShuffleWriterExec). Adaptive spill (VERDICT r4 #4): accumulation
+        starts in memory; past ``ballista.exchange.spill_rows`` input rows
+        the partial accumulation flushes to per-output-partition IPC files
+        and the rest streams straight to disk — the exchange then never
+        lives in RAM at once (reference: shuffle_writer.rs:233-329, the
+        materialized shuffle as memory relief valve)."""
 
         def compute():
+            from ballista_tpu_torch.engine.spill import PartitionSpill, SpilledParts
+
             n = plan.partitioning.n
-            outs: list[list[ColumnBatch]] = [[] for _ in range(n)]
+            budget = self._exchange_spill_rows()
+            outs: Optional[list[list[ColumnBatch]]] = [[] for _ in range(n)]
+            spill: Optional[PartitionSpill] = None
+            acc = 0
             for i in range(plan.input.output_partitions()):
                 batch = self._exec(plan.input, i)
-                for j, b in enumerate(
-                    K.hash_partition(batch, plan.partitioning.exprs, n)
-                ):
-                    outs[j].append(b)
-            return [
-                ColumnBatch.concat(bs) if bs else ColumnBatch.empty(plan.schema())
-                for bs in outs
-            ]
+                if spill is None and budget and acc + batch.num_rows > budget:
+                    spill = PartitionSpill(
+                        n, list(plan.partitioning.exprs), self._spill_dir(),
+                        compression=self._shuffle_codec(),
+                    )
+                    for j, bs in enumerate(outs):
+                        for b in bs:
+                            spill.append_to(j, b)
+                    outs = None
+                if spill is not None:
+                    spill.append_split(batch)
+                else:
+                    acc += batch.num_rows
+                    for j, b in enumerate(
+                        K.hash_partition(batch, plan.partitioning.exprs, n)
+                    ):
+                        outs[j].append(b)
+            if spill is None:
+                return [
+                    ColumnBatch.concat(bs) if bs else ColumnBatch.empty(plan.schema())
+                    for bs in outs
+                ]
+            spill.finish()
+            with self._lock:
+                self.op_metrics["op.ExchangeSpill.rows"] = (
+                    self.op_metrics.get("op.ExchangeSpill.rows", 0.0)
+                    + spill.spilled_rows
+                )
+                self.op_metrics["op.ExchangeSpill.bytes"] = (
+                    self.op_metrics.get("op.ExchangeSpill.bytes", 0.0)
+                    + spill.spilled_bytes
+                )
+            return SpilledParts(spill, plan.schema())
 
         return self._compute_once(id(plan), compute)
 
@@ -294,10 +627,9 @@ class NumpyEngine(ExecutionEngine):
         pushed = _to_arrow_filter(plan.filters)
 
         def read(f):
-            if "://" in f:
-                raise ExecutionError(
-                    f"object-store scans are not ported to ballista_tpu_torch yet: {f!r}"
-                )
+            from ballista_tpu_torch.utils.object_store import io_cached_path
+
+            f = io_cached_path(f)
             if self.data_cache_enabled:
                 whole = _DATA_CACHE.get_with(("pq", f), lambda: pq.read_table(f))
                 t = whole.select(cols) if cols is not None else whole
@@ -329,7 +661,21 @@ class NumpyEngine(ExecutionEngine):
         return batch
 
     def _read_shuffle(self, plan: P.ShuffleReaderExec, part: int) -> ColumnBatch:
-        raise ExecutionError("shuffle reads are not ported to ballista_tpu_torch yet")
+        from ballista_tpu_torch.shuffle.feed import FeedStats
+        from ballista_tpu_torch.shuffle.reader import read_shuffle_partition
+
+        consolidate, pooled = self._dataplane_opts()
+        stats = FeedStats()
+        try:
+            return read_shuffle_partition(
+                plan.partition_locations[part], plan.schema(),
+                object_store_url=self._object_store_url(),
+                consolidate=consolidate, pooled=pooled,
+                codec=self._shuffle_codec(),
+                pipeline_wait_s=self._pipeline_wait_s(), feed_stats=stats,
+            )
+        finally:
+            self._note_feed_stats(stats)
 
 
 def _to_arrow_filter(filters):

@@ -38,11 +38,18 @@ estimate exceeds the budget is declined. Each stage records its estimate
 PyTorch runs eagerly, so a stage program is traced anew on every call: there
 is no compile cache, precompile or hint pipeline. Nodes outside
 ``_supported`` run on the host kernels, as the JAX engine's unsupported
-nodes do, and each such run adds to ``op.HostFallback.count``. Streaming and
-the multi-device exchange are not ported yet.
+nodes do, and each such run adds to ``op.HostFallback.count``.
+
+A stage over a shuffle read streams (``execute_partition_stream``): chunks
+coalesced to ``ballista.tpu.stream_device_rows`` run one device stage each,
+with the next chunk's host-to-device copy on a side CUDA stream when
+``ballista.engine.prefetch_depth`` > 0, and a final aggregate folds each
+chunk's states on the device in ``merge`` mode. The multi-device exchange is
+not ported yet.
 """
 from __future__ import annotations
 
+import logging
 import os
 import time
 from dataclasses import replace
@@ -53,8 +60,9 @@ import torch
 
 from ballista_tpu_torch.config import (
     BALLISTA_ENGINE_PAGED_JOIN, BALLISTA_ENGINE_PAGED_JOIN_THRESHOLD,
-    BALLISTA_SHUFFLE_COMPRESSION, BALLISTA_TPU_FUSE_INPUT_MAX_ROWS, BALLISTA_TPU_ICI_SHUFFLE,
-    BALLISTA_TPU_MIN_DEVICE_ROWS, BALLISTA_TPU_NATIVE_DTYPES, BallistaConfig,
+    BALLISTA_ENGINE_PREFETCH_DEPTH, BALLISTA_SHUFFLE_COMPRESSION,
+    BALLISTA_TPU_FUSE_INPUT_MAX_ROWS, BALLISTA_TPU_ICI_SHUFFLE, BALLISTA_TPU_MIN_DEVICE_ROWS,
+    BALLISTA_TPU_NATIVE_DTYPES, BALLISTA_TPU_STREAM_DEVICE_ROWS, BallistaConfig,
 )
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine.numpy_engine import NumpyEngine
@@ -70,6 +78,8 @@ from ballista_tpu_torch.plan.expr import (
 )
 from ballista_tpu_torch.plan.schema import DataType
 from ballista_tpu_torch.utils.cache import LoadingCache
+
+log = logging.getLogger("ballista.engine")
 
 # module-level caches: hot leaf encodings (host) and their device copies
 # survive across queries and engines. Their keys name content (scan files
@@ -161,6 +171,10 @@ class TorchEngine(NumpyEngine):
         # > 0 while a paged join's passes run: each pass is sized to the
         # budget already, so the stage estimate must not page it again
         self._in_paged = 0
+        # the side stream prefetched chunks cross to the card on, made on
+        # first use (see _pipelined_chunks)
+        self._copy_stream: Optional[torch.cuda.Stream] = None
+        self._apply_dtype_policy()
 
     def _apply_dtype_policy(self) -> None:
         # module-level so trace-time literal/arith decisions see it
@@ -473,8 +487,9 @@ class TorchEngine(NumpyEngine):
         # the stage's device bytes, estimated from its real leaves: past the
         # budget, its widest partitioned join pages (a safety net under
         # admission, which plans from row estimates)
-        est = MM.estimate_program_bytes(plan, leaves)
-        self._metric_max("op.HbmEst.max_bytes", est)
+        self._metric_max("op.HbmEst.max_bytes", MM.estimate_program_bytes(plan, leaves))
+        est = MM.estimate_eager_program_bytes(plan, leaves)
+        self._metric_max("op.HbmEstEager.max_bytes", est)
         budget = self._hbm_budget()
         if (budget > 0 and est > self._paged_threshold() * budget and not self._in_paged
                 and self._paged_join_enabled()):
@@ -487,7 +502,7 @@ class TorchEngine(NumpyEngine):
                           and not n.paged and leaves.get(id(n), ("",))[0] != "out"]
             if candidates:
                 raise _PagedJoinFallback(
-                    max(candidates, key=lambda n: MM.estimate_program_bytes(n, leaves)))
+                    max(candidates, key=lambda n: MM.estimate_eager_program_bytes(n, leaves)))
 
         tensors = self._device_args(leaves)
         stage_fn, holder = _make_stage_fn(plan, _stage_layout(leaves))
@@ -577,8 +592,28 @@ class TorchEngine(NumpyEngine):
         out = []
         for _kind, enc, extra, cache_key, _node in leaves.values():
             arrays = enc.arrays if extra is None else enc.arrays + [extra[0]]
+            # a streamed chunk whose copies the prefetch already issued on
+            # the side stream (single-use, like its pre-encode)
+            pre = getattr(enc, "_pre_dev", None)
+            if pre is not None and cache_key is None and extra is None:
+                enc._pre_dev = None
+                out.extend(self._await_prefetched(*pre))
+                continue
             out.extend(self._cached_on_device(cache_key, arrays))
         return out
+
+    def _await_prefetched(self, tensors: list, done) -> list:
+        """Tensors the prefetch copied on the side stream, made safe to use
+        on this thread's current stream: it waits for the copies' event, and
+        each tensor records that stream, so the caching allocator hands its
+        memory back only once the compute queued on it has run."""
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for t in tensors:
+                t.record_stream(cur)
+        self._metric("op.PrefetchH2D.count", 1.0)
+        return tensors
 
     def _cached_on_device(self, cache_key: Optional[tuple], arrays: list) -> list:
         """``arrays`` on the device, read through the device cache under
@@ -666,6 +701,12 @@ class TorchEngine(NumpyEngine):
         return leaves
 
     def _encode(self, batch: ColumnBatch):
+        # the prefetch may have encoded this chunk on its producer thread
+        # already (single-use: consumed here, so a reused batch never replays it)
+        pre = getattr(batch, "_pre_enc", None)
+        if pre is not None:
+            batch._pre_enc = None
+            return pre
         t0 = time.time()
         enc = KT.encode_host_batch(batch)
         self._metric("op.HostEncode.time_s", time.time() - t0)
@@ -698,6 +739,193 @@ class TorchEngine(NumpyEngine):
         """Host-materialize a leaf; its own subtree may still use device
         stages (NumpyEngine dispatches children through ``self._exec``)."""
         return NumpyEngine._exec(self, node, part)
+
+    # ---- device streaming (bounded-memory shuffle consumers) -------------------------
+    # Streamed shuffle-read chunks are coalesced to the device-batch budget,
+    # spliced into the plan as single-use MemoryScan leaves and run through the
+    # ordinary stage driver. A final aggregate folds each chunk's partial
+    # states on the device with a merge-mode aggregate, so resident state stays
+    # bounded by the distinct-group count while the per-chunk work runs on the
+    # card.
+    def _stream_maker(self, plan: P.PhysicalPlan, part: int):
+        if self._host_only:
+            return super()._stream_maker(plan, part)
+        if isinstance(plan, P.HashAggregateExec) and plan.mode == "final" and _supported(plan):
+            return lambda: self._stream_device_final_agg(plan, part)
+        if self._chunkwise_device(plan) and self._chunk_source(plan) is not plan:
+            return lambda: self._stream_device_chunks(plan, part)
+        return super()._stream_maker(plan, part)
+
+    def _chunkwise_device(self, node: P.PhysicalPlan) -> bool:
+        """Can this node process one streamed chunk at a time on the device?
+        A probe join streams its probe side against a collected build;
+        right and full joins would need unmatched-build tracking across
+        chunks, so they stay on the one-shot path."""
+        if isinstance(node, (P.FilterExec, P.ProjectExec)):
+            return _supported(node)
+        if isinstance(node, P.HashJoinExec):
+            return (node.collect_build and node.how in ("inner", "left", "semi", "anti")
+                    and _supported(node))
+        return False
+
+    def _chunk_source(self, plan: P.PhysicalPlan) -> P.PhysicalPlan:
+        """Descend the chunk-wise device chain to the streamed source node."""
+        node = plan
+        while self._chunkwise_device(node):
+            node = node.left if isinstance(node, P.HashJoinExec) else node.input
+        return node
+
+    def _stream_device_rows(self) -> int:
+        return int(self.config.get(BALLISTA_TPU_STREAM_DEVICE_ROWS) or (1 << 20))
+
+    def _coalesce_chunks(self, chunks):
+        """Streamed chunks concatenated up to the device-batch budget: each
+        stage launch amortises over a large batch while resident memory stays
+        bounded by the budget."""
+        budget = max(1, self._stream_device_rows())
+        buf: list[ColumnBatch] = []
+        rows = 0
+        for c in chunks:
+            if c.num_rows == 0:
+                continue
+            buf.append(c)
+            rows += c.num_rows
+            if rows >= budget:
+                yield buf[0] if len(buf) == 1 else ColumnBatch.concat(buf)
+                buf, rows = [], 0
+        if buf:
+            yield buf[0] if len(buf) == 1 else ColumnBatch.concat(buf)
+
+    def _splice(self, plan: P.PhysicalPlan, source: P.PhysicalPlan, scan) -> P.PhysicalPlan:
+        """``plan`` with ``source`` replaced by ``scan``, keeping the identity
+        of every untouched subtree: the id-keyed caches (prepared builds,
+        materialized inputs) must keep hitting across chunks."""
+        if plan is source:
+            return scan
+        kids = plan.children()
+        new = [self._splice(c, source, scan) for c in kids]
+        if all(a is b for a, b in zip(kids, new)):
+            return plan
+        return plan.with_children(*new)
+
+    def _scan_at(self, batch: ColumnBatch, part: int) -> P.MemoryScanExec:
+        """A scan serving ``batch`` at partition ``part``, kept out of the
+        content-keyed leaf caches (a chunk is never read again)."""
+        parts = [batch if i == part else ColumnBatch.empty(batch.schema) for i in range(part + 1)]
+        return P.MemoryScanExec(parts, batch.schema, ephemeral=True)
+
+    def _exec_spliced(self, plan: P.PhysicalPlan, source: P.PhysicalPlan,
+                      chunk: ColumnBatch, part: int) -> ColumnBatch:
+        # the spliced tree is not kept: cache entries key only on original
+        # nodes, which the caller's plan keeps alive, and keeping every
+        # chunk's tree would pin every chunk's data for the whole task
+        return self._exec(self._splice(plan, source, self._scan_at(chunk, part)), part)
+
+    def _prefetch_depth(self) -> int:
+        return int(self.config.get(BALLISTA_ENGINE_PREFETCH_DEPTH) or 0)
+
+    def _pipelined_chunks(self, source: P.PhysicalPlan, part: int):
+        """Coalesced stream chunks. With ``prefetch_depth`` > 0 a bounded
+        producer thread reads and decodes chunk k+1 while the device computes
+        chunk k, encodes it, and on CUDA issues its host-to-device copies on
+        a side stream from pinned memory, recording an event the consumer
+        waits on (``_await_prefetched``). The current stream is per thread:
+        copies issued on the producer's default stream would queue behind the
+        compute and overlap nothing. Only those copies leave the engine
+        thread: a source whose own stream would run device stages (a
+        coalesce of partial aggregates, say) is read on the engine thread,
+        unprefetched. Closing the consumer stops the producer and closes the
+        source stream."""
+        chunks = self._coalesce_chunks(self._stream(source, part))
+        depth = self._prefetch_depth()
+        if depth <= 0 or any(_supported(n) for n in P.walk_physical(source)):
+            return chunks
+        from ballista_tpu_torch.utils.prefetch import prefetch_iter
+
+        if self.device.type == "cuda" and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+
+        def stage(chunk: ColumnBatch) -> ColumnBatch:
+            try:
+                enc = KT.encode_host_batch(chunk)
+                if self._copy_stream is None:
+                    enc._pre_dev = ([KT.host_to_device(a, self.device) for a in enc.arrays], None)
+                else:
+                    with torch.cuda.device(self.device), torch.cuda.stream(self._copy_stream):
+                        tensors = [KT.host_to_device(a, self.device) for a in enc.arrays]
+                        done = torch.cuda.Event()
+                        done.record(self._copy_stream)
+                    enc._pre_dev = (tensors, done)
+                self._metric("op.PrefetchH2D.bytes", float(sum(a.nbytes for a in enc.arrays)))
+            except Exception:  # noqa: BLE001 - counted: the consumer encodes inline
+                log.warning("chunk pre-encode failed; encoding inline", exc_info=True)
+                self._metric("op.PrefetchEncode.failed", 1.0)
+                return chunk
+            chunk._pre_enc = enc
+            self._metric("op.PrefetchEncode.count", 1.0)
+            return chunk
+
+        return prefetch_iter(chunks, depth, transform=stage)
+
+    def _stream_device_chunks(self, plan: P.PhysicalPlan, part: int):
+        source = self._chunk_source(plan)
+        for chunk in self._pipelined_chunks(source, part):
+            self._metric("op.StreamChunk.count", 1.0)
+            yield self._exec_spliced(plan, source, chunk, part)
+
+    def _stream_device_final_agg(self, plan: P.HashAggregateExec, part: int):
+        """Per chunk, one device stage runs the chunk-wise chain below the
+        aggregate (filters, projects, probe joins) and a merge-mode fold of
+        its partial states; only the fold of state with state, bounded by
+        the distinct-group count, runs on the host between chunks. When that
+        state outgrows ``ballista.agg.spill_state_rows``, chunk states spill
+        to salted hash buckets on disk and each bucket merges and finalizes
+        alone: groups never straddle buckets, so resident memory is one
+        bucket."""
+        from ballista_tpu_torch.engine.spill import PartitionSpill
+
+        below = plan.input
+        source = self._chunk_source(below) if self._chunkwise_device(below) else below
+        merge_node = P.HashAggregateExec(
+            input=below, mode="merge", group_exprs=plan.group_exprs,
+            agg_exprs=plan.agg_exprs, input_schema_for_aggs=plan.input_schema_for_aggs,
+        )
+        self._tiny_keepalive.append(merge_node)
+        budget = self._agg_spill_rows()
+        state: Optional[ColumnBatch] = None
+        spill: Optional[PartitionSpill] = None
+        for chunk in self._pipelined_chunks(source, part):
+            self._metric("op.StreamChunk.count", 1.0)
+            chunk_state = self._exec_spliced(merge_node, source, chunk, part)
+            if spill is not None:
+                spill.append_split(chunk_state)
+                continue
+            state = chunk_state if state is None else KNP.merge_partial_states(
+                ColumnBatch.concat([state, chunk_state]), plan.group_exprs, plan.agg_exprs)
+            if budget and plan.group_exprs and state.num_rows > budget:
+                spill = PartitionSpill(
+                    self.AGG_SPILL_BUCKETS, list(plan.group_exprs), self._spill_dir(),
+                    salted=True, compression=self._shuffle_codec(),
+                )
+                spill.append_split(state)
+                state = None
+        if spill is None:
+            if state is None:
+                state = ColumnBatch.empty(below.schema())
+            yield self._exec_spliced(plan, below, state, part)
+            return
+        spill.finish()
+        self._metric("op.AggSpill.rows", float(spill.spilled_rows))
+        try:
+            for b in range(spill.n):
+                bstate: Optional[ColumnBatch] = None
+                for chunk in spill.read_chunks(b):
+                    bstate = chunk if bstate is None else KNP.merge_partial_states(
+                        ColumnBatch.concat([bstate, chunk]), plan.group_exprs, plan.agg_exprs)
+                if bstate is not None and bstate.num_rows:
+                    yield self._exec_spliced(plan, below, bstate, part)
+        finally:
+            spill.close()
 
 
 def _leaf_cache_key(node: P.PhysicalPlan, part: int) -> Optional[tuple]:
@@ -819,8 +1047,6 @@ def _supported(plan: P.PhysicalPlan) -> bool:
     if isinstance(plan, P.ProjectExec):
         return all(_expr_ok(e) for e in plan.exprs)
     if isinstance(plan, P.HashAggregateExec):
-        if plan.mode not in ("single", "partial", "final"):
-            return False
         for e in plan.group_exprs:
             if not _expr_ok(e):
                 return False
@@ -1066,6 +1292,35 @@ def _trace_agg_cols(mode, a: Agg, name, db, sums):
             return lambda res: [avg_div(s(res, DataType.FLOAT64), res[cnt], res[cnt] == 0)]
         if a.fn in ("min", "max"):
             return min_max_of(c)
+        raise ExecutionError(a.fn)
+
+    if mode == "merge":
+        # partial-layout states in, partial-layout states out: the streamed
+        # final aggregate's fold step (associative, so chunks fold in any
+        # order; the final step runs once at the end)
+        if a.fn in ("count", "count_star"):
+            st = db.col(f"{name}#count")
+            cnt = sums.count(st.null)
+            at = sums.sum(st.data, st.null)
+            return lambda res: [KT.DeviceCol(DataType.INT64, res[at], res[cnt] == 0)]
+        if a.fn == "avg":
+            s = db.col(f"{name}#sum")
+            cn = db.col(f"{name}#count")
+            ssum = seg_sum_col(s)
+            scnt = sums.sum(cn.data, cn.null)
+            return lambda res: [ssum(res, DataType.FLOAT64), KT.DeviceCol(DataType.INT64, res[scnt])]
+        st = db.col(f"{name}#{a.fn}")
+        if st.is_string:
+            raise _HostFallback()
+        if a.fn == "sum":
+            cnt = sums.count(st.null)
+            ssum = seg_sum_col(st)
+            return lambda res: [ssum(res, st.dtype, res[cnt] == 0)]
+        if a.fn in ("min", "max"):
+            m = KT.seg_min(st.data, sums.ids, sums.k, rv, st.null, a.fn == "min")
+            cnt = sums.count(st.null)
+            return lambda res: [KT.DeviceCol(st.dtype, m, res[cnt] == 0,
+                                             range=st.range, scale=st.scale)]
         raise ExecutionError(a.fn)
 
     # final: merge partial states located by name

@@ -109,6 +109,79 @@ def group_codes(cols: Sequence[Column]) -> tuple[np.ndarray, int, np.ndarray]:
     return codes, k, first
 
 
+# ---- exact decimals ----------------------------------------------------------------
+MAX_DECIMAL_SCALE = 8   # sniffed column scale bound (literal scale may be higher)
+
+
+def sniff_decimal(
+    vals: np.ndarray, valid: Optional[np.ndarray]
+) -> Optional[tuple[int, np.ndarray, tuple[int, int]]]:
+    """Detect an exact-decimal FLOAT64 column: returns (scale, scaled int64
+    array with invalid slots zeroed, exact (lo, hi) scaled range) when every
+    valid value round-trips ``round(v*10^s)/10^s == v`` within int64-exact
+    magnitude, else None. The division recovery is exact: IEEE division of
+    the two exactly-representable integers is correctly rounded, so it
+    reproduces the f64 the decimal parser produced."""
+    v = vals if valid is None else vals[valid]
+    if v.size == 0:
+        return (0, np.zeros(len(vals), np.int64), (0, 0))
+    if not np.all(np.isfinite(v)):
+        return None
+
+    def fits(w: np.ndarray, s: int) -> bool:
+        m = 10.0**s
+        sw = np.round(w * m)
+        return bool(np.all(np.abs(sw) < float(1 << 53)) and np.array_equal(sw / m, w))
+
+    # minimal-scale search, screened on a sample first: a sample failing
+    # scale s proves the column fails s
+    sample = v[:1024]
+    for s0 in range(0, MAX_DECIMAL_SCALE + 1):
+        if fits(sample, s0):
+            break
+    else:
+        return None
+    for s in range(s0, MAX_DECIMAL_SCALE + 1):
+        if fits(v, s):
+            iv = np.round(v * 10.0**s).astype(np.int64)
+            lo, hi = int(iv.min()), int(iv.max())
+            if valid is None:
+                full = iv
+            else:
+                full = np.zeros(len(vals), np.int64)
+                full[valid] = iv
+            return (s, full, (lo, hi))
+    return None
+
+
+def lit_decimal_scale(value: float, max_scale: int = 12) -> Optional[int]:
+    """Minimal scale s <= max_scale such that round(value*10^s)/10^s == value
+    (exact in python floats), or None."""
+    if value != value or value in (float("inf"), float("-inf")):
+        return None
+    for s in range(0, max_scale + 1):
+        scaled = round(value * 10**s)
+        if abs(scaled) < (1 << 53) and scaled / 10**s == value:
+            return s
+    return None
+
+
+def exact_decimal(vals: np.ndarray, valid: Optional[np.ndarray]):
+    """(scale, scaled int64 values, invalid slots zeroed) of an f64 column of
+    exact short decimals (``sniff_decimal``) whose int64 prefix sums cannot
+    wrap, else None: the host windows then sum it exactly, as the device
+    does, instead of differencing f64 prefix sums."""
+    if vals.dtype != np.float64:
+        return None
+    d = sniff_decimal(vals, valid)
+    if d is None:
+        return None
+    scale, iv, (lo, hi) = d
+    if len(iv) * max(abs(lo), abs(hi), 1) >= 1 << 62:
+        return None
+    return scale, iv
+
+
 # ---- hash partitioning ------------------------------------------------------------
 def hash_partition_indices(batch: ColumnBatch, exprs: Sequence[Expr], n: int) -> np.ndarray:
     """Bucket id per row for a hash exchange (reference: BatchPartitioner,
@@ -606,6 +679,10 @@ def _one_window(batch: ColumnBatch, w, n: int) -> Column:
 
     # aggregate window functions
     is_int = False
+    # a SUM or AVG over exact decimals: (scale, sorted scaled int64 values),
+    # summed exactly in int64 prefix sums as the device does; an f64 prefix
+    # difference would lose the last digit
+    dec = None
     if w.args:
         c = evaluate(w.args[0], batch)
         if c.dtype is DT.STRING:
@@ -613,6 +690,10 @@ def _one_window(batch: ColumnBatch, w, n: int) -> Column:
         is_int = c.dtype.is_integer and w.fn in ("sum", "min", "max")
         vals = np.asarray(c.data, dtype=np.int64 if is_int else np.float64)
         valid = np.ones(n, bool) if c.valid is None else c.valid.copy()
+        if w.fn in ("sum", "avg") and not is_int and w.order_by:
+            dec = exact_decimal(vals, c.valid)
+            if dec is not None:
+                dec = (dec[0], dec[1][order])
         vals = vals[order]
         valid = valid[order]
     else:  # count(*)
@@ -622,7 +703,7 @@ def _one_window(batch: ColumnBatch, w, n: int) -> Column:
     k = int(seg_id[-1]) + 1 if n else 0
     if w.frame is not None:
         full, empty = _frame_aggregate(
-            w, n, vals, valid, order, seg_start, peer_start, peer_vals, is_int
+            w, n, vals, valid, order, seg_start, peer_start, peer_vals, is_int, dec
         )
         return _agg_result(order, full, empty, w, n, is_int)
     if not w.order_by:
@@ -648,19 +729,18 @@ def _one_window(batch: ColumnBatch, w, n: int) -> Column:
     next_start = np.append(np.nonzero(peer_start)[0][1:], n)
     peer_last_idx = (next_start - 1)[peer_gid]  # last row index of each row's peer group
 
-    vz = np.where(valid, vals, vals.dtype.type(0))
-    csum = np.cumsum(vz)  # int64-exact for integer inputs
+    vz = dec[1] if dec is not None else np.where(valid, vals, vals.dtype.type(0))
+    csum = np.cumsum(vz)  # int64-exact for integer and decimal inputs
     seg_first = np.maximum.accumulate(np.where(seg_start, np.arange(n), 0))
-    base_sum = np.where(seg_first > 0, csum[seg_first - 1], vals.dtype.type(0))
+    base_sum = np.where(seg_first > 0, csum[seg_first - 1], vz.dtype.type(0))
     ccnt = np.cumsum(valid.astype(np.int64))
     base_cnt = np.where(seg_first > 0, ccnt[seg_first - 1], 0)
 
     if w.fn in ("sum", "avg", "count"):
         run_sum = csum[peer_last_idx] - base_sum
         run_cnt = ccnt[peer_last_idx] - base_cnt
-        full = {"sum": run_sum, "count": run_cnt,
-                "avg": run_sum / np.maximum(run_cnt, 1)}[w.fn]
-        return _agg_result(order, full, run_cnt == 0, w, n, is_int)
+        return _agg_result(order, _sum_or_avg(w.fn, run_sum, run_cnt, dec), run_cnt == 0,
+                           w, n, is_int)
     if w.fn in ("min", "max"):
         # segmented running min/max: per-segment accumulate (python loop over
         # segments; window partitions are typically modest in count)
@@ -682,7 +762,47 @@ def _one_window(batch: ColumnBatch, w, n: int) -> Column:
     raise ExecutionError(f"window function {w.fn} unsupported")
 
 
-def _frame_aggregate(w, n, vals, valid, order, seg_start, peer_start, peer_vals, is_int):
+def _sum_or_avg(fn: str, fsum: np.ndarray, fcnt: np.ndarray, dec) -> np.ndarray:
+    """A window's SUM, COUNT or AVG from its frame sums and counts. Over
+    exact decimals (``dec``: the scale) the sums are scaled int64, descaled
+    once here: the sum as the device's fetch does, the average as the one
+    correctly rounded quotient of two exact integers."""
+    if fn == "count":
+        return fcnt
+    if dec is None:
+        return fsum if fn == "sum" else fsum / np.maximum(fcnt, 1)
+    unit = 10.0 ** dec[0]
+    if fn == "sum":
+        return fsum.astype(np.float64) / unit
+    return fsum.astype(np.float64) / (np.maximum(fcnt, 1) * unit)
+
+
+def _decimal_range_keys(raw, kvalid, frame) -> Optional[tuple]:
+    """(int64 keys, {offset: int64 offset}) of a RANGE frame's order key at
+    one scale when the key is an exact decimal and every offset is exact at
+    a scale the int64 search can hold, else None (the f64 search)."""
+    if np.asarray(raw).dtype != np.float64:
+        return None
+    from ballista_tpu_torch.plan.expr import FOLLOWING, PRECEDING
+
+    kd = sniff_decimal(np.asarray(raw), None if kvalid is None else np.asarray(kvalid))
+    if kd is None:
+        return None
+    offs = [float(o) for kind, o in (frame.start, frame.end) if kind in (PRECEDING, FOLLOWING)]
+    scales = [lit_decimal_scale(o) for o in offs]
+    if any(sc is None for sc in scales):
+        return None
+    scale = max([kd[0]] + scales)
+    mul = 10 ** (scale - kd[0])
+    top = max(abs(kd[2][0]), abs(kd[2][1])) * mul + max(
+        (abs(round(o * 10**scale)) for o in offs), default=0)
+    if top >= 1 << 62:
+        return None
+    return kd[1] * np.int64(mul), {o: int(round(o * 10**scale)) for o in offs}
+
+
+def _frame_aggregate(w, n, vals, valid, order, seg_start, peer_start, peer_vals, is_int,
+                     dec=None):
     """Aggregate over an explicit ROWS/RANGE frame. All arrays are in sorted
     (partition, order-key) coordinates; returns (full, empty) in the same
     coordinates for _agg_result to scatter back.
@@ -690,8 +810,11 @@ def _frame_aggregate(w, n, vals, valid, order, seg_start, peer_start, peer_vals,
     ROWS bounds are row-offset arithmetic clipped to the segment; RANGE
     offsets binary-search the (single, numeric) order key within each
     segment's non-null region — null-key rows take their peer group as the
-    frame (nulls are peers of each other). sum/count/avg use prefix sums;
-    min/max a sparse table (O(n log n) build, O(1) per row)."""
+    frame (nulls are peers of each other). A decimal key is searched as
+    scaled int64 with the offsets at its scale, so an edge row exactly an
+    offset away stays in the frame. sum/count/avg use prefix sums (int64
+    over decimals, ``dec``); min/max a sparse table (O(n log n) build, O(1)
+    per row)."""
     from ballista_tpu_torch.plan.expr import (
         CURRENT_ROW, FOLLOWING, PRECEDING, UNBOUNDED_FOLLOWING,
         UNBOUNDED_PRECEDING,
@@ -732,7 +855,8 @@ def _frame_aggregate(w, n, vals, valid, order, seg_start, peer_start, peer_vals,
                 )
             raw, kvalid = peer_vals[0]
             asc = w.order_by[0][1]
-            key = np.asarray(raw, np.float64)[order]
+            exact = _decimal_range_keys(raw, kvalid, f)
+            key = (np.asarray(raw, np.float64) if exact is None else exact[0])[order]
             if not asc:
                 key = -key  # normalize: PRECEDING is always "smaller key"
             kv_sorted = (
@@ -757,8 +881,8 @@ def _frame_aggregate(w, n, vals, valid, order, seg_start, peer_start, peer_vals,
                         return np.full(b - a, b - 1)
                     if kind == CURRENT_ROW:
                         return (peer_first if is_start else peer_last)[sl]
-                    d = float(off) if kind == FOLLOWING else -float(off)
-                    q = key[sl] + d
+                    d = float(off) if exact is None else exact[1][float(off)]
+                    q = key[sl] + (d if kind == FOLLOWING else -d)
                     if is_start:
                         return va + np.searchsorted(kseg, q, "left")
                     return va + np.searchsorted(kseg, q, "right") - 1
@@ -795,12 +919,10 @@ def _frame_aggregate(w, n, vals, valid, order, seg_start, peer_start, peer_vals,
     fcnt = ccnt[hi_c] - ccnt[lo]
 
     if w.fn in ("sum", "avg", "count"):
-        vz = np.where(valid, vals, vals.dtype.type(0))
-        csum = np.concatenate([[vals.dtype.type(0)], np.cumsum(vz)])
+        vz = dec[1] if dec is not None else np.where(valid, vals, vals.dtype.type(0))
+        csum = np.concatenate([[vz.dtype.type(0)], np.cumsum(vz)])
         fsum = csum[hi_c] - csum[lo]
-        full = {"sum": fsum, "count": fcnt,
-                "avg": fsum / np.maximum(fcnt, 1)}[w.fn]
-        return full, (fcnt == 0) | empty_frame
+        return _sum_or_avg(w.fn, fsum, fcnt, dec), (fcnt == 0) | empty_frame
     if w.fn in ("min", "max"):
         if is_int:
             info = np.iinfo(np.int64)

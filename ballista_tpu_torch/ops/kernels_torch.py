@@ -39,6 +39,10 @@ import torch
 
 from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.ops.batch import Column, ColumnBatch
+# the decimal sniff is shared with the host kernels' exact decimal windows
+from ballista_tpu_torch.ops.kernels_np import (  # noqa: F401
+    MAX_DECIMAL_SCALE, lit_decimal_scale, sniff_decimal,
+)
 from ballista_tpu_torch.plan.expr import (
     Alias, BinaryOp, Case, Cast, Col, Expr, Func, InList, IsNull, Like, Lit, Not,
 )
@@ -56,7 +60,6 @@ from ballista_tpu_torch.plan.schema import DataType, Field, Schema
 # host) before an int64 sum could wrap. Config ``ballista.tpu.native_dtypes``
 # (set by TorchEngine) turns the policy off.
 NATIVE_DTYPES = True
-MAX_DECIMAL_SCALE = 8   # sniffed column scale bound (literal scale may be higher)
 _I64_SAFE = 1 << 62     # headroom bound for scaled-int64 intermediates
 
 _TORCH_OF = {
@@ -171,47 +174,6 @@ class DeviceBatch:
 
 
 # ---- decimal scaling helpers -------------------------------------------------------
-def sniff_decimal(
-    vals: np.ndarray, valid: Optional[np.ndarray]
-) -> Optional[tuple[int, np.ndarray, tuple[int, int]]]:
-    """Detect an exact-decimal FLOAT64 column: returns (scale, scaled int64
-    array with invalid slots zeroed, exact (lo, hi) scaled range) when every
-    valid value round-trips ``round(v*10^s)/10^s == v`` within int64-exact
-    magnitude, else None. The division recovery is exact: IEEE division of
-    the two exactly-representable integers is correctly rounded, so it
-    reproduces the f64 the decimal parser produced."""
-    v = vals if valid is None else vals[valid]
-    if v.size == 0:
-        return (0, np.zeros(len(vals), np.int64), (0, 0))
-    if not np.all(np.isfinite(v)):
-        return None
-
-    def fits(w: np.ndarray, s: int) -> bool:
-        m = 10.0**s
-        sw = np.round(w * m)
-        return bool(np.all(np.abs(sw) < float(1 << 53)) and np.array_equal(sw / m, w))
-
-    # minimal-scale search, screened on a sample first: a sample failing
-    # scale s proves the column fails s
-    sample = v[:1024]
-    for s0 in range(0, MAX_DECIMAL_SCALE + 1):
-        if fits(sample, s0):
-            break
-    else:
-        return None
-    for s in range(s0, MAX_DECIMAL_SCALE + 1):
-        if fits(v, s):
-            iv = np.round(v * 10.0**s).astype(np.int64)
-            lo, hi = int(iv.min()), int(iv.max())
-            if valid is None:
-                full = iv
-            else:
-                full = np.zeros(len(vals), np.int64)
-                full[valid] = iv
-            return (s, full, (lo, hi))
-    return None
-
-
 def f32_exact(vals: np.ndarray, valid: Optional[np.ndarray]) -> Optional[np.ndarray]:
     """f32 re-encode of an f64 column when LOSSLESS: every valid value
     round-trips f64->f32->f64 bit-identically. NaN columns stay f64."""
@@ -222,18 +184,6 @@ def f32_exact(vals: np.ndarray, valid: Optional[np.ndarray]) -> Optional[np.ndar
     if not np.all(ok):
         return None
     return f32
-
-
-def lit_decimal_scale(value: float, max_scale: int = 12) -> Optional[int]:
-    """Minimal scale s <= max_scale such that round(value*10^s)/10^s == value
-    (exact in python floats), or None."""
-    if value != value or value in (float("inf"), float("-inf")):
-        return None
-    for s in range(0, max_scale + 1):
-        scaled = round(value * 10**s)
-        if abs(scaled) < (1 << 53) and scaled / 10**s == value:
-            return s
-    return None
 
 
 def descale_f32(c: DeviceCol) -> torch.Tensor:

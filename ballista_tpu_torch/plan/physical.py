@@ -218,7 +218,7 @@ def agg_state_fields(agg: Agg, name: str, in_schema: Schema) -> list[Field]:
 @dataclass(repr=False)
 class HashAggregateExec(PhysicalPlan):
     input: PhysicalPlan
-    mode: str  # single | partial | final
+    mode: str  # single | partial | final | merge
     group_exprs: list[Expr]
     agg_exprs: list[Expr]  # Alias(Agg)
     # in final mode, group_exprs/agg_exprs are expressed against the ORIGINAL

@@ -4,12 +4,15 @@ Reference analog: the ``ballista/cache`` crate (survey §2.4): a Guava-style
 loading cache — ``get_with(key, loader)`` coalesces concurrent loads of the
 same key (one loader runs; the others wait), an LRU policy accounts per-entry
 resource cost, and listeners observe evictions. Used for the executor's
-data-cache layer (``ballista.data_cache.enabled``).
+data-cache layer (``ballista.data_cache.enabled``) and the torch engine's
+host-encode/device-transfer caches.
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
+
+from ballista_tpu_torch.analysis import concurrency
 from typing import Callable, Generic, Hashable, Optional, TypeVar
 
 K = TypeVar("K", bound=Hashable)
@@ -105,6 +108,7 @@ class LoadingCache(Generic[K, V]):
         return self._total
 
     # ---- internals (call with lock held) -----------------------------------------
+    @concurrency.guarded_by("_mu")
     def _insert(self, key: K, value: V) -> None:
         if key in self._entries:
             self._drop(key, notify=False)
@@ -136,6 +140,7 @@ class LoadingCache(Generic[K, V]):
             self._drop(evictable.pop(0))
             self.evictions += 1
 
+    @concurrency.guarded_by("_mu")
     def _drop(self, key: K, notify: bool = True) -> None:
         v = self._entries.pop(key, None)
         if v is None:
@@ -143,3 +148,130 @@ class LoadingCache(Generic[K, V]):
         self._total -= self._weights.pop(key, 0)
         if notify and self.eviction_listener is not None:
             self.eviction_listener(key, v)
+
+
+class DiskFileCache:
+    """Whole-file read-through cache on local disk, LRU by byte budget.
+
+    Reference analog: the cache-layer's file medium
+    (``arrow-ballista: ballista/core/src/cache_layer/medium/``): object-store
+    files are copied next to the executor once and re-read locally; eviction
+    drops least-recently-used files when the byte budget is exceeded.
+    Concurrent fetches of one file coalesce (same discipline as
+    ``LoadingCache.get_with``).
+    """
+
+    def __init__(
+        self, directory: str, capacity_bytes: int = 16 * 1024**3,
+        recent_grace_s: float = 60.0,
+    ):
+        import os
+
+        self.dir = directory
+        self.capacity = capacity_bytes
+        # never evict files touched this recently: a returned path may not
+        # have been opened by its reader yet
+        self.recent_grace_s = recent_grace_s
+        os.makedirs(directory, exist_ok=True)
+        self._mu = threading.Lock()
+        self._inflight: dict[str, threading.Event] = {}
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def _local(self, url: str) -> str:
+        import hashlib
+        import os
+
+        h = hashlib.sha1(url.encode()).hexdigest()
+        base = os.path.basename(url) or "file"
+        return os.path.join(self.dir, f"{h}-{base}")
+
+    def get_local(self, url: str, fetch=None) -> str:
+        """Local path for ``url``, fetching through the object-store registry
+        (or ``fetch(url, local_path)``) on miss."""
+        import os
+
+        local = self._local(url)
+        while True:
+            with self._mu:
+                if os.path.exists(local):
+                    os.utime(local)  # LRU touch
+                    self.hits += 1
+                    return local
+                ev = self._inflight.get(local)
+                if ev is None:
+                    self._inflight[local] = threading.Event()
+                    break
+            ev.wait()
+        try:
+            # unique temp per fetch: another PROCESS sharing this directory
+            # may fetch the same URL concurrently (the in-process inflight map
+            # cannot see it); each writes its own temp and the os.replace is
+            # atomic, so the cached file is always one writer's complete bytes
+            import tempfile
+
+            fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".tmp")
+            os.close(fd)
+            if fetch is not None:
+                fetch(url, tmp)
+            else:
+                from ballista_tpu_torch.utils.object_store import GLOBAL_OBJECT_STORES
+
+                fs, path = GLOBAL_OBJECT_STORES.resolve(url)
+                with fs.open_input_stream(path) as src, open(tmp, "wb") as dst:
+                    while True:
+                        chunk = src.read(4 * 1024 * 1024)
+                        if not chunk:
+                            break
+                        dst.write(chunk)
+            os.replace(tmp, local)
+        except BaseException:
+            try:
+                os.remove(tmp)  # failed fetch: do not orphan the unique temp
+            except OSError:
+                pass
+            with self._mu:
+                self._inflight.pop(local).set()
+            raise
+        with self._mu:
+            self.misses += 1
+            self._evict_locked(protect={local})
+            self._inflight.pop(local).set()
+        return local
+
+    def _evict_locked(self, protect: set) -> None:
+        import os
+        import time as _time
+
+        now = _time.time()
+        entries = []
+        total = 0
+        for name in os.listdir(self.dir):
+            p = os.path.join(self.dir, name)
+            if not os.path.isfile(p):
+                continue
+            st = os.stat(p)
+            if name.endswith(".tmp"):
+                # in-progress fetches are recent; anything older is an orphan
+                # from a crashed process — reclaim it
+                if now - st.st_mtime > 3600:
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
+                continue
+            entries.append((st.st_atime, st.st_size, p))
+            total += st.st_size
+        entries.sort()
+        for atime, size, p in entries:
+            if total <= self.capacity:
+                break
+            if p in protect or p in self._inflight or now - atime < self.recent_grace_s:
+                continue
+            try:
+                os.remove(p)
+                total -= size
+                self.evictions += 1
+            except OSError:
+                pass

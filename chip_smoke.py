@@ -56,7 +56,31 @@ Phases, each of which passes or ends the run with a non-zero exit:
              an exact int64 reference (``window_exact``); zero host
              fallbacks; warm runs profiled (device time inside the window
              functions, their sorts, segmented scans and frames).
-7. timing  — grouped_sums at one column (2^21 rows, k = 12, int64), at
+7. staged  — the shuffle data plane and device streaming at SF1, the way
+             an executor runs a job: ``run_staged`` splits the plan with the
+             port's ``plan_query_stages``, runs every task as
+             ``execute_partition_stream`` of a fresh torch engine on ``cuda``
+             into ``write_shuffle_stream`` (Arrow IPC pieces under
+             ``.chip_smoke_data/staged``) and resolves the next stage's
+             readers with ``remove_unresolved_shuffles``. q1, q3, q5 and q12
+             cold then warm, held to the exact reference and the host engine
+             as in the slice; S1 (``S1_SQL``: ~1.5 M groups, a streamed final
+             aggregate) at default settings and in small chunks under a state
+             budget it outgrows (``op.AggSpill.rows`` > 0), held to an exact
+             int64 reference; S2 (``s2_stage``: a streamed probe join of
+             lineitem's shuffle against a collected build, at least two
+             device chunks a partition) with ``prefetch_depth`` 2 and 0, rows
+             exact, every chunk copied ahead at depth 2 and the build
+             transferred once a partition; q3 with every piece fetched from
+             a Flight server in another process (spill directory empty
+             afterwards); q3 through the standalone exchange spilling past
+             ``ballista.exchange.spill_rows``. Zero host fallbacks and failed
+             pre-encodes, one grouped_sums launch per aggregate or merge
+             stage of at most 32 groups. On every path of the script, each
+             stage of at least 1 MB must measure no more than its eager
+             estimate (``memory_model.estimate_eager_program_bytes``). A warm
+             staged q1 and S2 at both depths are profiled (busy share).
+8. timing  — grouped_sums at one column (2^21 rows, k = 12, int64), at
              the largest and smallest stages of q1's warm run (the fused
              program's partial aggregate and final merge), at the largest
              stage of its unfused run, and at a
@@ -75,8 +99,10 @@ nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -543,88 +569,100 @@ def check_hash_buckets(device, tables: dict) -> None:
           "kernels_np", flush=True)
 
 
-def run_counted(ctx, sql: str) -> dict:
-    """One collect, with grouped_sums' launch count set to 0 just before
-    it and read just after. Also records the shapes (n, k, columns, dtype)
-    grouped_sums was given, each presum_safe call's (scale in, scale out),
-    the aggregate stages whose group count k is in (0, MASKED_SEG_K] (the
-    ones that launch it), the schema of every batch encoded for the device,
-    the leaf caches' hits and misses, the memory governor's report, and on
-    the card the peak of device memory allocated during the run and what was
-    allocated before. The engine resets the allocator's peak at each device
-    stage to measure the stage (``op.HbmPeak.max_bytes``), so the run's peak
-    is the engine's ``op.DevicePeak.max_bytes``, which folds in the
-    allocator's peak before every reset (cached inputs of earlier runs
-    included)."""
+@contextlib.contextmanager
+def counting():
+    """Records what the device path does inside the block: grouped_sums'
+    launches (the count set to 0 on entry, read on exit), the shapes (n, k,
+    columns, dtype) grouped_sums was given, each presum_safe call's (scale
+    in, scale out), the aggregate stages whose group count k is in (0,
+    MASKED_SEG_K] (the ones that launch it), the schema of every batch
+    encoded for the device, and each device stage's (estimate equal to the
+    JAX engine's, eager estimate, measured peak) in ``stage_bytes``."""
     import ballista_tpu_torch.engine.memory_model as MM
-    import ballista_tpu_torch.engine.torch_engine as TE
     import ballista_tpu_torch.ops.grouped_sums as GS
     import ballista_tpu_torch.ops.kernels_torch as KT
 
-    shapes: dict = {}
-    presums: list = []
-    encoded: list = []
-    small_k = [0]
+    rec: dict = {"shapes": {}, "presums": [], "encoded": [], "small_k_stages": 0,
+                 "stage_bytes": []}
     real_gs, real_ps, real_compute = GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute
     real_enc = KT.encode_host_batch
-    real_est, real_meas = MM.estimate_program_bytes, MM.measured_program_bytes
-    stage_bytes: list = []  # (estimate, measured peak) of each device stage
-    ests: list = []
+    real_est, real_eager = MM.estimate_program_bytes, MM.estimate_eager_program_bytes
+    real_meas = MM.measured_program_bytes
+    ests, eagers = [0], [0]
 
     def gs(vals, masks, ids, k):
         dtype = next((v.dtype for v in vals if v is not None), torch.int64)
         key = (int(ids.shape[0]), int(k), len(vals), dtype)
-        shapes[key] = shapes.get(key, 0) + 1
+        rec["shapes"][key] = rec["shapes"].get(key, 0) + 1
         return real_gs(vals, masks, ids, k)
 
     def ps(c, n_pad):
         out = real_ps(c, n_pad)
-        presums.append((c.scale, out.scale))
+        rec["presums"].append((c.scale, out.scale))
         return out
 
     def compute(sums):
-        small_k[0] += 0 < sums.k <= KT.MASKED_SEG_K
+        rec["small_k_stages"] += 0 < sums.k <= KT.MASKED_SEG_K
         return real_compute(sums)
 
     def enc(batch, pad=None):
-        encoded.append(tuple(batch.schema.names))
+        rec["encoded"].append(tuple(batch.schema.names))
         return real_enc(batch, pad)
 
     def est(plan, leaves):
         ests.append(real_est(plan, leaves))
         return ests[-1]
 
+    def eager(plan, leaves):
+        eagers.append(real_eager(plan, leaves))
+        return eagers[-1]
+
     def meas(device, base_bytes, resident_bytes=0):
-        stage_bytes.append((ests[-1], real_meas(device, base_bytes, resident_bytes)))
-        return stage_bytes[-1][1]
+        rec["stage_bytes"].append(
+            (ests[-1], eagers[-1], real_meas(device, base_bytes, resident_bytes)))
+        return rec["stage_bytes"][-1][2]
+
+    GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute = gs, ps, compute
+    KT.encode_host_batch = enc
+    MM.estimate_program_bytes, MM.estimate_eager_program_bytes = est, eager
+    MM.measured_program_bytes = meas
+    GS.launches = 0
+    try:
+        yield rec
+    finally:
+        rec["launches"] = GS.launches
+        GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute = real_gs, real_ps, real_compute
+        KT.encode_host_batch = real_enc
+        MM.estimate_program_bytes, MM.estimate_eager_program_bytes = real_est, real_eager
+        MM.measured_program_bytes = real_meas
+
+
+def run_counted(ctx, sql: str) -> dict:
+    """One collect inside ``counting()``, with the leaf caches' hits and
+    misses, the memory governor's report, and on the card the peak of device
+    memory allocated during the run and what was allocated before. The
+    engine resets the allocator's peak at each device stage to measure the
+    stage (``op.HbmPeak.max_bytes``), so the run's peak is the engine's
+    ``op.DevicePeak.max_bytes``, which folds in the allocator's peak before
+    every reset (cached inputs of earlier runs included)."""
+    import ballista_tpu_torch.engine.torch_engine as TE
 
     caches = (TE._ENC_CACHE, TE._DEV_CACHE)
     before = [(c.hits, c.misses) for c in caches]
     on_card = torch.cuda.is_available() and ctx.device.startswith("cuda")
-    GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute = gs, ps, compute
-    KT.encode_host_batch = enc
-    MM.estimate_program_bytes, MM.measured_program_bytes = est, meas
-    try:
+    with counting() as rec:
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated() if on_card else 0
-        GS.launches = 0
         t0 = time.time()
         got = ctx.sql(sql).collect()
         wall = time.time() - t0
-        launches = GS.launches
         peak = ctx.last_engine_metrics.get("op.DevicePeak.max_bytes", 0.0) if on_card else 0
-    finally:
-        GS.grouped_sums_multi, KT.presum_safe, KT.SegSums.compute = real_gs, real_ps, real_compute
-        KT.encode_host_batch = real_enc
-        MM.estimate_program_bytes, MM.measured_program_bytes = real_est, real_meas
     hits = {name: (c.hits - h, c.misses - m)
             for name, c, (h, m) in zip(("encode", "device"), caches, before)}
-    return {"table": got, "wall": wall, "launches": launches, "shapes": shapes,
-            "presums": presums, "small_k_stages": small_k[0], "encoded": encoded,
-            "cache": hits, "peak_bytes": peak, "base_bytes": base, "stage_bytes": stage_bytes,
-            "metrics": dict(ctx.last_engine_metrics), "report": ctx.last_memory_report}
+    return dict(rec, table=got, wall=wall, cache=hits, peak_bytes=peak, base_bytes=base,
+                metrics=dict(ctx.last_engine_metrics), report=ctx.last_memory_report)
 
 
 def _physical(ctx, sql: str):
@@ -721,18 +759,10 @@ def paged_budget(ctx, sql: str) -> int:
     return max(ests) // 4
 
 
-def run_slice(device: str, tables: dict, sf: float, parts: int, tag: str,
-              profile: bool = False):
-    """The slice's paths on the torch engine, every run held against the
-    exact reference and the host engine and checked by check_run (its
-    summary printed first, tagged ``tag``). Returns
-    {(path, query, run): run_counted's record} and, with ``profile``,
-    {(path, query): profile_run's record} for the default path's warm runs
-    and the unfused runs."""
+def references(tables: dict) -> tuple:
+    """(the exact reference of every query in QUERIES, {query: (sql, the
+    port's host engine's result)})."""
     from ballista_tpu_torch.client.context import BallistaContext
-    from ballista_tpu_torch.config import BallistaConfig
-    from ballista_tpu_torch.engine import torch_engine as TE
-    from ballista_tpu_torch.plan import physical as P
 
     t0 = time.time()
     exact = exact_reference(tables)
@@ -747,7 +777,23 @@ def run_slice(device: str, tables: dict, sf: float, parts: int, tag: str,
         t0 = time.time()
         want[q] = (sql, host.sql(sql).collect())
         print(f"{q} host engine: {time.time() - t0:.3f} s", flush=True)
+    return exact, want
 
+
+def run_slice(device: str, tables: dict, sf: float, parts: int, tag: str,
+              profile: bool = False, refs: tuple = None):
+    """The slice's paths on the torch engine, every run held against the
+    exact reference and the host engine and checked by check_run (its
+    summary printed first, tagged ``tag``). Returns
+    {(path, query, run): run_counted's record} and, with ``profile``,
+    {(path, query): profile_run's record} for the default path's warm runs
+    and the unfused runs."""
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import torch_engine as TE
+    from ballista_tpu_torch.plan import physical as P
+
+    exact, want = refs if refs is not None else references(tables)
     TE.clear_caches()
     out, prof = {}, {}
     for path, settings, queries, runs in PATHS:
@@ -914,8 +960,385 @@ def check_window_result(got, host, q: str, exact: dict) -> None:
                                  f"{g[bad].tolist()} vs {against} {want[bad].tolist()}")
 
 
-def profile_run(ctx, sql: str, owners: dict = None) -> dict:
-    """One run under torch.profiler: its wall, the device busy time in it
+# ---- 7. staged -----------------------------------------------------------------------
+STAGED_QUERIES = ("q1", "q3", "q5", "q12")
+# S1: a final aggregate of ~1.5 M groups (one per order) over 16 shuffle
+# partitions; no ORDER BY above it, so its stage streams the shuffle read
+S1_SQL = ("SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue, "
+          "count(*) AS n FROM lineitem GROUP BY l_orderkey")
+# S1 again in small chunks (also to the device: a partition's ~94 k states
+# would otherwise coalesce into one chunk) under a state budget it outgrows
+S1_SPILL = {"ballista.shuffle.stream_chunk_rows": "32768",
+            "ballista.tpu.stream_device_rows": "32768",
+            "ballista.agg.spill_state_rows": "65536"}
+# S2: lineitem's q3 columns in this many shuffle partitions by l_orderkey
+S2_PARTITIONS = 4
+S2_DATE = "1995-03-15"
+# a Flight server in a process of its own, serving shuffle pieces by paths
+# relative to its working directory (which the reader's process cannot
+# resolve, so every piece is fetched remotely); prints its port
+FLIGHT_SERVER = r"""
+import sys
+sys.path.insert(0, {repo!r})
+from ballista_tpu_torch.shuffle.flight import ShuffleFlightServer
+server = ShuffleFlightServer("127.0.0.1", 0, ".")
+print(server.port, flush=True)
+server.serve()
+"""
+
+
+def _fold(into: dict, metrics: dict) -> None:
+    """Per-task engine metrics into a run's: peaks by max, the rest summed."""
+    for k, v in metrics.items():
+        into[k] = max(into.get(k, 0.0), v) if k.endswith("max_bytes") else into.get(k, 0.0) + v
+
+
+def run_staged(ctx, sql: str, work_dir: str, job: str, settings=None, serve=None) -> dict:
+    """The executor's loop in one process: ``sql`` split into stages by the
+    port's ``plan_query_stages``; each task of a stage streams
+    ``execute_partition_stream(stage.input, pid)`` of a fresh torch engine
+    into ``write_shuffle_stream``; ``remove_unresolved_shuffles`` then points
+    the next stage's readers at the pieces written. With ``serve`` (host,
+    port) every piece is located on that Flight server by its path relative
+    to ``work_dir``. Returns the result table (the last stage's pieces in
+    partition order), the wall, stages, tasks, shuffle bytes written and
+    read, and the tasks' metrics folded (``_fold``)."""
+    import pyarrow as pa
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine.engine import create_engine
+    from ballista_tpu_torch.plan import physical as P
+    from ballista_tpu_torch.scheduler.planner import (
+        plan_query_stages, remove_unresolved_shuffles,
+    )
+    from ballista_tpu_torch.shuffle.reader import read_shuffle_partition
+    from ballista_tpu_torch.shuffle.stream import write_shuffle_stream
+
+    config = BallistaConfig(dict(ctx.config.settings(), **(settings or {})))
+    t0 = time.time()
+    stages = plan_query_stages(job, _physical(ctx, sql))
+    locations: dict = {}
+    metrics: dict = {}
+    tasks = written = read = 0
+    for stage in stages:
+        plan = remove_unresolved_shuffles(stage, locations)
+        read += sum(int(loc.get("num_bytes", 0)) for n in P.walk_physical(plan)
+                    if isinstance(n, P.ShuffleReaderExec)
+                    for locs in n.partition_locations for loc in locs)
+        outs = [[] for _ in range(plan.output_partitions())]
+        for pid in range(plan.input_partitions()):
+            engine = create_engine("torch", config, device=ctx.device)
+            stats, _rows = write_shuffle_stream(
+                plan, pid, engine.execute_partition_stream(plan.input, pid), work_dir)
+            for st in stats:
+                written += st.num_bytes
+                loc = {"path": st.path, "host": "localhost", "flight_port": 0,
+                       "executor_id": "local", "stage_id": plan.stage_id, "map_partition": pid,
+                       "num_rows": st.num_rows, "num_bytes": st.num_bytes}
+                if serve is not None:
+                    loc.update(path=os.path.relpath(st.path, work_dir), host=serve[0],
+                               flight_port=serve[1], executor_id="served")
+                outs[st.output_partition].append(loc)
+            _fold(metrics, engine.op_metrics)
+            tasks += 1
+        locations[plan.stage_id] = outs
+    last = stages[-1]
+    table = pa.concat_tables([read_shuffle_partition(locs, last.schema()).to_arrow()
+                              for locs in locations[last.stage_id]])
+    if torch.cuda.is_available() and str(ctx.device).startswith("cuda"):
+        torch.cuda.synchronize()
+    return {"table": table, "wall": time.time() - t0, "stages": len(stages), "tasks": tasks,
+            "written": written, "read": read, "metrics": metrics}
+
+
+def report_staged(label: str, r: dict, card: str) -> None:
+    m = r["metrics"]
+    prefetch = {k: m.get(k, 0.0) for k in ("op.PrefetchEncode.count", "op.PrefetchH2D.count",
+                                           "op.PrefetchH2D.bytes", "op.PrefetchEncode.failed")}
+    print(f"staged {label}: wall {r['wall']:.3f} s, {r['stages']} stages, {r['tasks']} tasks, "
+          f"shuffle bytes written {r['written']}, read {r['read']}, device chunks "
+          f"{m.get('op.StreamChunk.count', 0.0):g}, device stages "
+          f"{m.get('op.DeviceExecute.count', 0.0):g}, grouped_sums launches {r['launches']} "
+          f"(aggregate stages of k <= 32: {r['small_k_stages']}), prefetch {prefetch}, agg "
+          f"spill rows {m.get('op.AggSpill.rows', 0.0):g}, exchange spill rows "
+          f"{m.get('op.ExchangeSpill.rows', 0.0):g}, host fallbacks "
+          f"{m.get('op.HostFallback.count', 0.0):g}; "
+          f"{estimate_summary(f'staged {label}', r['stage_bytes'])} [{card}]", flush=True)
+
+
+def check_staged(label: str, r: dict, launching: bool) -> None:
+    """Zero host fallbacks, no failed pre-encode, and one grouped_sums
+    launch per aggregate or merge stage of at most 32 groups."""
+    m = r["metrics"]
+    if m.get("op.HostFallback.count", 0.0) != 0.0:
+        raise AssertionError(f"staged {label}: {m['op.HostFallback.count']:g} host fallbacks")
+    if m.get("op.PrefetchEncode.failed", 0.0) != 0.0:
+        raise AssertionError(f"staged {label}: {m['op.PrefetchEncode.failed']:g} failed "
+                             "pre-encodes")
+    if r["launches"] != r["small_k_stages"] or (launching and r["launches"] <= 0):
+        raise AssertionError(f"staged {label}: {r['launches']} grouped_sums launches in "
+                             f"{r['small_k_stages']} aggregate stages of k <= 32")
+
+
+def staged_counted(ctx, sql: str, work_dir: str, job: str, **kw) -> dict:
+    with counting() as rec:
+        r = run_staged(ctx, sql, work_dir, job, **kw)
+    return dict(rec, **r)
+
+
+def s1_reference(tables: dict):
+    """S1 exactly: per order, the int64 sum of price x (1 - discount) in
+    ten-thousandths and the line count. (keys, sums, counts), keys sorted."""
+    li = _read(tables, "lineitem", ["l_orderkey", "l_extendedprice", "l_discount"])
+    rev = _hundredths(li["l_extendedprice"]) * (100 - _hundredths(li["l_discount"]))
+    keys, inv = np.unique(li["l_orderkey"], return_inverse=True)
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inv, rev)
+    return keys, sums, np.bincount(inv, minlength=len(keys))
+
+
+def check_s1(label: str, r: dict, ref) -> None:
+    keys, sums, counts = ref
+    t = r["table"].sort_by("l_orderkey")
+    got_keys = t.column("l_orderkey").to_numpy()
+    if not np.array_equal(got_keys, keys) or not np.array_equal(t.column("n").to_numpy(), counts):
+        raise AssertionError(f"S1 {label}: orders or counts differ from the exact reference")
+    rev = t.column("revenue").to_numpy()
+    want = sums.astype(np.float64) / 1e4
+    if rounding_error(r["presums"]) == 0.0:
+        ok = np.array_equal(rev, want)
+    else:
+        ok = bool(np.all(np.abs(rev - want) <= rounding_error(r["presums"]) *
+                         (counts + len(r["presums"])) + 2 * np.spacing(np.abs(want))))
+    if not ok:
+        raise AssertionError(f"S1 {label}: revenue differs from the exact reference by up to "
+                             f"{np.abs(rev - want).max()}")
+
+
+def s2_stage(tables: dict, work_dir: str):
+    """S2's stage plan, built by hand as the streaming tests build theirs:
+    lineitem's q3 columns (every row) written by the port's writer in
+    S2_PARTITIONS partitions by l_orderkey, one map task per parquet file,
+    read back by a ShuffleReaderExec; a filter on the ship date; an inner
+    join with a collected build of the orders placed before S2_DATE; a
+    projection of the revenue. Returns (plan, lineitem arrays for the exact
+    reference, the orders build's keys)."""
+    import glob
+
+    import pyarrow.parquet as pq
+
+    from ballista_tpu_torch.ops.batch import ColumnBatch
+    from ballista_tpu_torch.plan import physical as P
+    from ballista_tpu_torch.plan.expr import Alias, BinaryOp, Col, Lit
+    from ballista_tpu_torch.plan.schema import DataType
+    from ballista_tpu_torch.shuffle.writer import write_shuffle_partitions
+
+    cols = ["l_orderkey", "l_linenumber", "l_extendedprice", "l_discount", "l_shipdate"]
+    files = sorted(glob.glob(os.path.join(tables["lineitem"], "*.parquet")))
+    locs = [[] for _ in range(S2_PARTITIONS)]
+    schema = None
+    for m, f in enumerate(files):
+        batch = ColumnBatch.from_arrow(pq.read_table(f, columns=cols))
+        schema = batch.schema
+        wplan = P.ShuffleWriterExec("s2", 1, P.MemoryScanExec([batch], schema),
+                                    P.HashPartitioning((Col("l_orderkey"),), S2_PARTITIONS))
+        for st in write_shuffle_partitions(wplan, m, batch, work_dir):
+            locs[st.output_partition].append(
+                {"path": st.path, "host": "localhost", "flight_port": 0, "executor_id": "local",
+                 "stage_id": 1, "map_partition": m, "num_rows": st.num_rows,
+                 "num_bytes": st.num_bytes})
+    od = pq.read_table(tables["orders"], columns=["o_orderkey", "o_orderdate", "o_shippriority"])
+    od = od.filter(np.asarray(od.column("o_orderdate").cast("int32").to_numpy()) < _day(S2_DATE))
+    build = ColumnBatch.from_arrow(od)
+    reader = P.ShuffleReaderExec(1, schema, locs)
+    filt = P.FilterExec(reader, BinaryOp(">", Col("l_shipdate"),
+                                         Lit(_day(S2_DATE), DataType.DATE32)))
+    join = P.HashJoinExec(left=filt, right=P.MemoryScanExec([build], build.schema),
+                          on=[(Col("l_orderkey"), Col("o_orderkey"))], how="inner",
+                          collect_build=True)
+    revenue = BinaryOp("*", Col("l_extendedprice"),
+                       BinaryOp("-", Lit(1, DataType.INT64), Col("l_discount")))
+    plan = P.ProjectExec(join, [Alias(Col("l_orderkey"), "l_orderkey"),
+                                Alias(Col("l_linenumber"), "l_linenumber"),
+                                Alias(revenue, "revenue"), Alias(Col("o_orderdate"), "o_orderdate"),
+                                Alias(Col("o_shippriority"), "o_shippriority")])
+    return plan, od.column("o_orderkey").to_numpy()
+
+
+def s2_reference(tables: dict, order_keys: np.ndarray):
+    """S2 exactly: (l_orderkey, l_linenumber, revenue in ten-thousandths) of
+    the lines shipped after S2_DATE whose order is in the build, sorted."""
+    li = _read(tables, "lineitem", ["l_orderkey", "l_linenumber", "l_extendedprice",
+                                    "l_discount", "l_shipdate"])
+    keep = (li["l_shipdate"] > _day(S2_DATE)) & np.isin(li["l_orderkey"], order_keys)
+    key, line = li["l_orderkey"][keep], li["l_linenumber"][keep]
+    rev = _hundredths(li["l_extendedprice"][keep]) * (100 - _hundredths(li["l_discount"][keep]))
+    o = np.lexsort((line, key))
+    return key[o], line[o], rev[o]
+
+
+def run_s2(plan, device: str, depth: int, settings: dict) -> dict:
+    """S2's stage, each partition a task of its own streaming on a fresh
+    torch engine at ``prefetch_depth`` = ``depth``; the rows, the wall, the
+    tasks' metrics folded and per partition: device chunks, prefetched
+    copies, bytes transferred and the prepared build's bytes."""
+    import pyarrow as pa
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine.engine import create_engine
+
+    config = BallistaConfig(dict(settings, **{"ballista.engine.prefetch_depth": str(depth)}))
+    t0 = time.time()
+    parts, metrics, per = [], {}, []
+    for pid in range(S2_PARTITIONS):
+        engine = create_engine("torch", config, device=device)
+        parts.extend(b.to_arrow() for b in engine.execute_partition_stream(plan, pid))
+        m = engine.op_metrics
+        builds = [sum(a.nbytes for a in enc.arrays) + bk.nbytes
+                  for enc, bk, _dup, _uid in engine._build_prep.values()]
+        per.append({"chunks": m.get("op.StreamChunk.count", 0.0),
+                    "prefetched": m.get("op.PrefetchH2D.count", 0.0),
+                    "transferred": m.get("op.DeviceTransfer.bytes", 0.0), "build": builds})
+        _fold(metrics, m)
+    return {"table": pa.concat_tables(parts), "wall": time.time() - t0, "metrics": metrics,
+            "per_partition": per}
+
+
+def check_s2(label: str, r: dict, ref, depth: int) -> None:
+    key, line, rev = ref
+    t = r["table"].sort_by([("l_orderkey", "ascending"), ("l_linenumber", "ascending")])
+    if not (np.array_equal(t.column("l_orderkey").to_numpy(), key)
+            and np.array_equal(t.column("l_linenumber").to_numpy(), line)
+            and np.array_equal(t.column("revenue").to_numpy(), rev.astype(np.float64) / 1e4)):
+        raise AssertionError(f"S2 {label}: rows differ from the exact reference")
+    m = r["metrics"]
+    if m.get("op.HostFallback.count", 0.0) or m.get("op.PrefetchEncode.failed", 0.0):
+        raise AssertionError(f"S2 {label}: fallbacks or failed pre-encodes {m}")
+    for pid, p in enumerate(r["per_partition"]):
+        if p["chunks"] < 2 or len(p["build"]) != 1:
+            raise AssertionError(f"S2 {label} partition {pid}: {p}")
+        if depth > 0 and (p["prefetched"] != p["chunks"] or p["transferred"] != p["build"][0]):
+            # every chunk prefetched; the build crossed to the card once
+            raise AssertionError(f"S2 {label} partition {pid}: {p}")
+
+
+# the CPU rehearsal's SF 0.01 in S1's and S2's chunk sizes: several chunks
+# a partition there too
+S1_SPILL_SMALL = {"ballista.shuffle.stream_chunk_rows": "256",
+                  "ballista.tpu.stream_device_rows": "256",
+                  "ballista.agg.spill_state_rows": "512"}
+S2_SMALL = {"ballista.shuffle.stream_chunk_rows": "4096",
+            "ballista.tpu.stream_device_rows": "4096"}
+
+
+def run_staged_phase(device: str, tables: dict, tag: str, refs: tuple,
+                     profile: bool = False, small: bool = False):
+    """The staged phase (see the module docstring). Returns {(path, label,
+    run): the run's record} and {(path, label): profile_run's record} of
+    its profiled runs. ``small``: S1's and S2's chunk sizes for SF 0.01
+    (the CPU rehearsal)."""
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+
+    exact, want = refs
+    ctx = BallistaContext.standalone(device=device)
+    for name, location in tables.items():
+        ctx.register_parquet(name, location)
+    work = os.path.join(DATA_DIR, "staged")
+    shutil.rmtree(work, ignore_errors=True)
+    out, prof = {}, {}
+    for q in STAGED_QUERIES:
+        sql, expect = want[q]
+        for run in ("cold", "warm"):
+            r = staged_counted(ctx, sql, work, f"{q}-{run}")
+            report_staged(f"{q} {run}", r, tag)
+            check_result(r["table"], expect, exact[q], q, r["presums"])
+            check_staged(f"{q} {run}", r, q in LAUNCHING)
+            out[("staged", q, run)] = r
+        if profile and q == "q1":
+            prof[("staged", "q1 warm")] = profile_run(
+                ctx, sql, work=lambda: run_staged(ctx, sql, work, "q1-profiled"))
+
+    ref = s1_reference(tables)
+    for label, settings in (("default", {}), ("spill", S1_SPILL_SMALL if small else S1_SPILL)):
+        r = staged_counted(ctx, S1_SQL, work, f"s1-{label}", settings=settings)
+        report_staged(f"S1 {label}", r, tag)
+        check_s1(label, r, ref)
+        check_staged(f"S1 {label}", r, False)
+        out[("staged", "S1", label)] = r
+        if label == "spill" and not (
+                r["metrics"].get("op.AggSpill.rows", 0.0) > 0
+                and r["metrics"].get("op.StreamChunk.count", 0.0) >= 2 * SHUFFLE_PARTITIONS):
+            raise AssertionError(f"S1 spill: several chunks a partition and a spill expected, "
+                                 f"got {r['metrics']}")
+
+    plan, order_keys = s2_stage(tables, os.path.join(work, "s2"))
+    ref = s2_reference(tables, order_keys)
+    for depth in (2, 0):
+        with counting() as rec:
+            r = run_s2(plan, device, depth, S2_SMALL if small else {})
+        r.update(rec)
+        per = r["per_partition"]
+        print(f"S2 prefetch_depth={depth}: wall {r['wall']:.3f} s, chunks per partition "
+              f"{[p['chunks'] for p in per]}, prefetched copies (op.PrefetchH2D.count) "
+              f"{[p['prefetched'] for p in per]}, bytes transferred per partition "
+              f"{[p['transferred'] for p in per]}, the build's bytes per partition "
+              f"{[p['build'] for p in per]}, prefetch failures "
+              f"{r['metrics'].get('op.PrefetchEncode.failed', 0.0):g}; "
+              f"{estimate_summary(f'S2 depth {depth}', r['stage_bytes'])} [{tag}]", flush=True)
+        check_s2(f"depth {depth}", r, ref, depth)
+        out[("staged", "S2", f"depth{depth}")] = r
+        if profile:
+            prof[("staged", f"S2 depth {depth}")] = profile_run(
+                ctx, None, work=lambda d=depth: run_s2(plan, device, d, {}))
+
+    # q3 with every piece fetched from a Flight server in another process
+    remote = os.path.join(work, "remote")
+    spill = os.path.join(work, "remote-spill")
+    os.makedirs(remote, exist_ok=True)
+    server = subprocess.Popen([sys.executable, "-c", FLIGHT_SERVER.format(repo=REPO)],
+                              cwd=remote, stdout=subprocess.PIPE, text=True)
+    try:
+        port = int(server.stdout.readline())
+        sql, expect = want["q3"]
+        r = staged_counted(ctx, sql, remote, "remote-q3", serve=("127.0.0.1", port),
+                           settings={"ballista.shuffle.spill_dir": spill})
+    finally:
+        server.terminate()
+        server.wait(timeout=30)
+    report_staged("q3 remote", r, tag)
+    check_result(r["table"], expect, exact["q3"], "q3", r["presums"])
+    check_staged("q3 remote", r, False)
+    out[("staged", "q3-remote", "once")] = r
+    left = [f for f in os.listdir(spill) if f.startswith("fetch-")] if os.path.isdir(spill) else []
+    if left:
+        raise AssertionError(f"q3 remote: spill files left behind: {left[:5]}")
+
+    # the standalone exchange spilling to disk
+    # its joins partitioned (at SF1 both builds would be collected, and only
+    # the aggregate's ~30 k partial states would cross an exchange)
+    spill_rows = "1000" if small else "100000"
+    ex = BallistaContext.standalone(BallistaConfig({
+        "ballista.tpu.ici_shuffle": "false", "ballista.optimizer.broadcast_rows_threshold": "0",
+        "ballista.exchange.spill_rows": spill_rows}), device=device)
+    for name, location in tables.items():
+        ex.register_parquet(name, location)
+    sql, expect = want["q3"]
+    r = run_counted(ex, sql)
+    report_run("exchange-spill", "q3", "once", r, tag)
+    check_result(r["table"], expect, exact["q3"], "q3", r["presums"])
+    m = r["metrics"]
+    if not m.get("op.ExchangeSpill.rows", 0.0) > 0 or m.get("op.HostFallback.count", 0.0):
+        raise AssertionError(f"exchange spill q3: {m}")
+    print(f"exchange-spill q3: op.ExchangeSpill.rows {m['op.ExchangeSpill.rows']:g}, bytes "
+          f"{m.get('op.ExchangeSpill.bytes', 0.0):g} [{tag}]", flush=True)
+    out[("exchange-spill", "q3", "once")] = r
+    return out, prof
+
+
+def profile_run(ctx, sql: str, owners: dict = None, work=None) -> dict:
+    """One run (``ctx.sql(sql).collect()``, or ``work()`` when it is
+    given) under torch.profiler: its wall, the device busy time in it
     (the sum of CUDA kernel and copy time the profiler records), the five
     busiest device ops, and the device time of the kernels launched inside
     each of ``owners`` ({label: (module or class, function name)}; by
@@ -942,7 +1365,10 @@ def profile_run(ctx, sql: str, owners: dict = None) -> dict:
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
             t0 = time.time()
-            ctx.sql(sql).collect()
+            if work is None:
+                ctx.sql(sql).collect()
+            else:
+                work()
             torch.cuda.synchronize()
             wall = time.time() - t0
     finally:
@@ -1016,24 +1442,44 @@ def main_runs(results: dict) -> dict:
     return out
 
 
+# stages whose eager estimate fell below their measured peak, over every run
+# of the script: (run, eager estimate, measured peak); the run fails on any
+ESTIMATE_MISSES: list = []
+
+
+def estimate_summary(tag: str, stage_bytes: list) -> str:
+    """Measured peak over estimate, per stage of at least 1 MB estimated or
+    measured (below that the allocator's block sizes dominate the peak), for
+    the JAX-equal estimate and the eager one; records in ESTIMATE_MISSES
+    every such stage whose eager estimate is below its measured peak."""
+    big = [(j, e, p) for j, e, p in stage_bytes if max(e, p) >= 1 << 20]
+    for j, e, p in big:
+        if p > e:
+            ESTIMATE_MISSES.append((tag, e, p))
+
+    def spread(ratios):
+        ratios = sorted(ratios)
+        return (f"median {ratios[len(ratios) // 2]:.3f}, range {ratios[0]:.3f}-"
+                f"{ratios[-1]:.3f}" if ratios else "none")
+
+    widest = max(big, key=lambda t: t[1], default=(0, 0, 0))
+    return (f"measured / estimated over {len(big)} stages of >= 1 MB: JAX-equal "
+            f"{spread(p / max(j, 1) for j, _, p in big)}, eager "
+            f"{spread(p / max(e, 1) for _, e, p in big)}; the stage of the largest eager "
+            f"estimate: {widest[1]} eager, {widest[0]} JAX-equal, {widest[2]} measured")
+
+
 def report_run(path: str, q: str, run: str, r: dict, card: str) -> None:
     m = r["metrics"]
     fused = {k.split(".")[1]: m.get(k, 0.0) for k in FUSED_KEYS}
     budget = r["report"].budget_bytes if r["report"] is not None else 0
-    # per stage, measured peak over estimate, for the stages of 1 MB or more
-    # estimated (below that the allocator's block sizes dominate the peak)
-    big = [(e, p) for e, p in r["stage_bytes"] if e >= 1 << 20]
-    ratios = sorted(p / e for e, p in big)
-    widest = max(big, default=(0, 0))
     print(f"{path} {q} {run}: device budget {budget} bytes, largest stage estimate "
-          f"(op.HbmEst.max_bytes) {m.get('op.HbmEst.max_bytes', 0.0):.0f}, largest stage "
-          f"peak measured (op.HbmPeak.max_bytes) {m.get('op.HbmPeak.max_bytes', 0.0):.0f}; "
-          f"the stage of the largest estimate: {widest[0]} estimated, {widest[1]} measured; "
-          f"measured / estimated over {len(ratios)} stages of >= 1 MB: "
-          + (f"median {ratios[len(ratios) // 2]:.3f}, range {ratios[0]:.3f}-{ratios[-1]:.3f}"
-             if ratios else "none")
-          + f"; paged joins {m.get('op.PagedJoin.count', 0.0):g} in "
-          f"{m.get('op.PagedJoin.passes', 0.0):g} passes [{card}]", flush=True)
+          f"(op.HbmEst.max_bytes) {m.get('op.HbmEst.max_bytes', 0.0):.0f}, eager "
+          f"(op.HbmEstEager.max_bytes) {m.get('op.HbmEstEager.max_bytes', 0.0):.0f}, largest "
+          f"stage peak measured (op.HbmPeak.max_bytes) {m.get('op.HbmPeak.max_bytes', 0.0):.0f}"
+          f"; {estimate_summary(f'{path} {q} {run}', r['stage_bytes'])}; paged joins "
+          f"{m.get('op.PagedJoin.count', 0.0):g} in {m.get('op.PagedJoin.passes', 0.0):g} "
+          f"passes [{card}]", flush=True)
     print(f"{path} {q} {run}: wall {r['wall']:.3f} s, device stages "
           f"{m.get('op.DeviceExecute.count', 0.0):g}, grouped_sums launches "
           f"{r['launches']} (aggregate stages of k <= 32: {r['small_k_stages']}), "
@@ -1082,8 +1528,10 @@ def rehearse(data_dir: str, parts: int = 2) -> None:
     GS.grouped_sums_multi = counted
     try:
         check_hash_buckets("cpu", tables)
-        results, _ = run_slice("cpu", tables, 0.01, parts, "cpu")
+        refs = references(tables)
+        results, _ = run_slice("cpu", tables, 0.01, parts, "cpu", refs=refs)
         results.update(run_windows("cpu", tables, "cpu")[0])
+        results.update(run_staged_phase("cpu", tables, "cpu", refs, small=True)[0])
     finally:
         GS.grouped_sums_multi = real
     report_runs(results, {}, "cpu")
@@ -1127,7 +1575,8 @@ def main() -> int:
 
     phase("slice")
     t0 = time.time()
-    results, prof = run_slice("cuda", tables, SF, PARTS, card, profile=True)
+    refs = references(tables)
+    results, prof = run_slice("cuda", tables, SF, PARTS, card, profile=True, refs=refs)
     print(f"slice phase {time.time() - t0:.1f} s", flush=True)
 
     phase("windows")
@@ -1136,7 +1585,19 @@ def main() -> int:
     results.update(wresults)
     prof.update(wprof)
     print(f"windows phase {time.time() - t0:.1f} s", flush=True)
+
+    phase("staged")
+    t0 = time.time()
+    sresults, sprof = run_staged_phase("cuda", tables, card, refs, profile=True)
+    results.update(sresults)
+    prof.update(sprof)
+    print(f"staged phase {time.time() - t0:.1f} s", flush=True)
     report_runs(results, prof, card)
+    if ESTIMATE_MISSES:
+        for miss in ESTIMATE_MISSES:
+            print(f"eager estimate below the measured peak: {miss}", flush=True)
+        raise AssertionError(f"{len(ESTIMATE_MISSES)} stages of >= 1 MB measured above their "
+                             "eager estimate")
     mains = main_runs(results)
     by_path = {k: r["launches"] for k, r in mains.items()}
     print(f"grouped_sums launches on each path's main run: {by_path}", flush=True)

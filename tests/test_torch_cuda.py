@@ -471,3 +471,133 @@ def test_paged_join_on_card_matches_unpaged(card, sf001_tables):
 def _sorted_rows(table) -> list:
     rows = list(zip(*(table.column(c).to_pylist() for c in table.column_names)))
     return sorted(rows, key=lambda r: tuple((v is None, v if v is not None else 0) for v in r))
+
+
+# ---- device streaming on the card -----------------------------------------------------
+def _probe_join_over_shuffle(tmp_path, n=60_000, pieces=4, seed=41):
+    """A collected-build inner join over a one-output shuffle of ``n`` rows
+    written in ``pieces`` map pieces by the port's writer."""
+    from ballista_tpu_torch.ops.batch import ColumnBatch
+    from ballista_tpu_torch.plan import physical as P
+    from ballista_tpu_torch.plan.expr import Col
+    from ballista_tpu_torch.shuffle.writer import write_shuffle_partitions
+
+    rng = np.random.default_rng(seed)
+    batch = ColumnBatch.from_dict({"k": rng.integers(0, 97, n).astype(np.int64),
+                                   "v": rng.normal(size=n)})
+    build = ColumnBatch.from_dict({"bk": np.arange(97, dtype=np.int64),
+                                   "w": rng.normal(size=97)})
+    wplan = P.ShuffleWriterExec("jcard", 3, P.MemoryScanExec([batch], batch.schema),
+                                P.HashPartitioning((Col("k"),), 1))
+    step = n // pieces
+    locs = []
+    for m in range(pieces):
+        for s in write_shuffle_partitions(wplan, m, batch.slice(m * step, step), str(tmp_path)):
+            locs.append({"path": s.path, "host": "h", "flight_port": 0, "executor_id": "e",
+                         "stage_id": 3, "map_partition": m})
+    reader = P.ShuffleReaderExec(3, batch.schema, [locs])
+    return P.HashJoinExec(left=reader, right=P.MemoryScanExec([build], build.schema),
+                          on=[(Col("k"), Col("bk"))], how="inner", collect_build=True)
+
+
+def _stream_engine(device, depth):
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine.torch_engine import TorchEngine
+
+    return TorchEngine(BallistaConfig({"ballista.shuffle.stream_chunk_rows": "4096",
+                                       "ballista.tpu.stream_device_rows": "8192",
+                                       "ballista.engine.prefetch_depth": str(depth)}),
+                       device=device)
+
+
+def test_side_stream_prefetch_gives_the_chunks_of_depth_zero(card, tmp_path):
+    """Chunks copied ahead on the side stream give the rows of the
+    synchronous path, every chunk through the prefetch, none failed."""
+    import pyarrow as pa
+
+    plan = _probe_join_over_shuffle(tmp_path)
+    runs = {}
+    for depth in (0, 2):
+        eng = _stream_engine(str(card), depth)
+        out = [b.to_arrow() for b in eng.execute_partition_stream(plan, 0)]
+        runs[depth] = (pa.concat_tables(out).sort_by([("k", "ascending"), ("v", "ascending")]),
+                       eng.op_metrics)
+    assert runs[2][0].equals(runs[0][0])
+    m = runs[2][1]
+    assert m["op.StreamChunk.count"] == runs[0][1]["op.StreamChunk.count"] == 4
+    assert m["op.PrefetchH2D.count"] == m["op.PrefetchEncode.count"] == 4
+    assert m.get("op.PrefetchEncode.failed", 0.0) == 0.0
+    assert m.get("op.HostFallback.count", 0.0) == 0.0
+
+
+def test_record_stream_keeps_a_prefetched_tensor_alive(card, tmp_path):
+    """A chunk's tensors, copied on the side stream and freed while the
+    compute stream still reads them, are not handed out again by the
+    caching allocator until that read has run: a forced ``empty_cache`` and
+    fresh side-stream allocations filled with junk leave the read intact."""
+    plan = _probe_join_over_shuffle(tmp_path)
+    eng = _stream_engine(str(card), 2)
+    chunks = eng._pipelined_chunks(eng._chunk_source(plan), 0)
+    try:
+        chunk = next(chunks)
+        enc = chunk._pre_enc
+        expected = [torch.from_numpy(np.ascontiguousarray(a)) for a in enc.arrays]
+        tensors, done = enc._pre_dev
+        enc._pre_dev = None
+        got = eng._await_prefetched(tensors, done)
+        torch.cuda._sleep(200_000_000)          # the compute stream is busy
+        reads = [t.clone() for t in got]        # queued behind the spin
+        del got, tensors
+        torch.cuda.empty_cache()
+        with torch.cuda.stream(eng._copy_stream):
+            junk = [torch.full_like(r, 7) for r in reads]
+        torch.cuda.synchronize()
+        assert junk
+        for r, e in zip(reads, expected):
+            assert torch.equal(r.cpu(), e)
+    finally:
+        chunks.close()
+
+
+def test_merge_mode_on_card_matches_the_host_fold(card):
+    """A merge-mode fold of partial states on the card equals
+    ``kernels_np.merge_partial_states``: decimal sums and counts exactly,
+    in one grouped_sums launch; f64 sums within 1e-9."""
+    from ballista_tpu_torch.engine.torch_engine import TorchEngine
+    from ballista_tpu_torch.ops import grouped_sums as GS
+    from ballista_tpu_torch.ops import kernels_np as K
+    from ballista_tpu_torch.ops.batch import ColumnBatch
+    from ballista_tpu_torch.plan import physical as P
+    from ballista_tpu_torch.plan.expr import Agg, Alias, Col
+
+    rng = np.random.default_rng(31)
+    n = 200_000
+    raw = ColumnBatch.from_dict({"g": rng.integers(0, 7, n).astype(np.int64),
+                                 "d": rng.integers(-10**7, 10**7, n) / 100,
+                                 "x": rng.normal(size=n)})
+    aggs = [Alias(Agg("sum", Col("d")), "sd"), Alias(Agg("avg", Col("d")), "ad"),
+            Alias(Agg("sum", Col("x")), "sx"), Alias(Agg("max", Col("x")), "mx"),
+            Alias(Agg("count_star", None), "c")]
+    parts = [raw.slice(i, n // 8) for i in range(0, n, n // 8)]
+    # the device's partial states (exact decimals), computed on the CPU
+    partial = TorchEngine(device="cpu").execute_all(P.HashAggregateExec(
+        P.MemoryScanExec(parts, raw.schema), "partial", [Col("g")], aggs))
+    states = ColumnBatch.concat(partial)
+    merge = P.HashAggregateExec(P.MemoryScanExec([states], states.schema), "merge",
+                                [Col("g")], aggs)
+    GS.launches = 0
+    eng = TorchEngine(device=str(card))
+    dev = eng.execute_partition(merge, 0).to_arrow().sort_by("g")
+    assert GS.launches == 1
+    assert eng.op_metrics.get("op.HostFallback.count", 0.0) == 0.0
+    host = K.merge_partial_states(states, [Col("g")], aggs).to_arrow().sort_by("g")
+    for c in dev.column_names:
+        if c in ("sx#sum", "mx#max"):
+            np.testing.assert_allclose(dev.column(c).to_numpy(), host.column(c).to_numpy(),
+                                       rtol=1e-9)
+        elif c in ("sd#sum", "ad#sum"):
+            # exact decimals: the device's scaled int64 sum, descaled once
+            exact = [round(v * 100) for v in host.column(c).to_pylist()]
+            assert [round(v * 100) for v in dev.column(c).to_pylist()] == exact, c
+        else:
+            assert dev.column(c).to_pylist() == host.column(c).to_pylist(), c

@@ -66,6 +66,9 @@ def _top_level_names(path) -> frozenset:
 
 def test_no_jax_or_reference_imports_and_all_port_imports_resolve():
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
+    # the sub-packages of the shuffle slice are walked like the rest
+    walked = {os.path.relpath(os.path.dirname(p), PORT) for p in _port_sources()}
+    assert {"obs", "analysis", "shuffle", "scheduler", "utils", "engine"} <= walked
     bad = []
     for path in _port_sources():
         rel = os.path.relpath(path, REPO)
@@ -93,7 +96,8 @@ from ballista_tpu_torch.models.tpch import TPCH_TABLES
 ctx = BallistaContext.standalone(device="cpu")
 for t in TPCH_TABLES:
     ctx.register_parquet(t, os.path.join({data!r}, t))
-out = ctx.sql(open(os.path.join({repo!r}, "benchmarks", "queries", "q1.sql")).read()).collect()
+q1 = open(os.path.join({repo!r}, "benchmarks", "queries", "q1.sql")).read()
+out = ctx.sql(q1).collect()
 m = ctx.last_engine_metrics
 assert m.get("op.HostFallback.count", 0.0) == 0.0, m
 print("ROWS", out.num_rows)
@@ -126,21 +130,66 @@ assert "paged" in [d.action for d in pc.last_memory_report.decisions]
 assert pm["op.PagedJoin.count"] >= 1 and pm["op.PagedJoin.passes"] >= 2, pm
 assert pm.get("op.HostFallback.count", 0.0) == 0.0, pm
 print("PAGED", int(pm["op.PagedJoin.passes"]))
+
+# q1 and a streamed final aggregate, stage by stage through shuffle files
+import tempfile
+import pyarrow as pa
+from ballista_tpu_torch.engine.engine import create_engine
+from ballista_tpu_torch.plan.optimizer import optimize
+from ballista_tpu_torch.plan.physical_planner import PhysicalPlanner
+from ballista_tpu_torch.scheduler.planner import plan_query_stages, remove_unresolved_shuffles
+from ballista_tpu_torch.shuffle.reader import read_shuffle_partition
+from ballista_tpu_torch.shuffle.stream import write_shuffle_stream
+
+def staged(sql):
+    phys = PhysicalPlanner(ctx.catalog, ctx.config).plan(
+        optimize(ctx.sql(sql).logical_plan(), ctx.catalog))
+    work, locs, chunks, fallbacks = tempfile.mkdtemp(), {{}}, 0, 0
+    stages = plan_query_stages("iso", phys)
+    for stage in stages:
+        plan = remove_unresolved_shuffles(stage, locs)
+        outs = [[] for _ in range(plan.output_partitions())]
+        for pid in range(plan.input_partitions()):
+            eng = create_engine("torch", ctx.config, device="cpu")
+            stats, _ = write_shuffle_stream(
+                plan, pid, eng.execute_partition_stream(plan.input, pid), work)
+            for s in stats:
+                outs[s.output_partition].append(
+                    {{"path": s.path, "host": "localhost", "flight_port": 0,
+                     "executor_id": "local", "stage_id": plan.stage_id, "map_partition": pid}})
+            chunks += eng.op_metrics.get("op.StreamChunk.count", 0.0)
+            fallbacks += eng.op_metrics.get("op.HostFallback.count", 0.0)
+        locs[plan.stage_id] = outs
+    last = stages[-1]
+    got = pa.concat_tables([read_shuffle_partition(l, last.schema()).to_arrow()
+                            for l in locs[last.stage_id]])
+    return got, len(stages), chunks, fallbacks
+
+q1s, n_stages, _, fb = staged(q1)
+assert n_stages == 3 and fb == 0 and q1s.equals(out), (n_stages, fb)
+agg = ("select l_returnflag, l_linestatus, sum(l_extendedprice) as s, count(*) as n "
+       "from lineitem group by l_returnflag, l_linestatus")
+keys = [("l_returnflag", "ascending"), ("l_linestatus", "ascending")]
+got, _, chunks, fb = staged(agg)
+assert chunks > 0 and fb == 0, (chunks, fb)
+assert got.sort_by(keys).equals(ctx.sql(agg).collect().sort_by(keys))
+print("STAGED", int(chunks))
 assert not any(k == "jax" or k.startswith(("jax.", "ballista_tpu."))
                for k, v in sys.modules.items() if v is not None)
 """
 
 
 def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
-    """q1, a device window and a paged q3 join with JAX and the JAX package
-    unimportable."""
+    """q1, a device window, a paged q3 join, and q1 and a streamed final
+    aggregate stage by stage through shuffle files, with JAX and the JAX
+    package unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", _Q1_BLOCKED.format(repo=REPO, data=torch_tpch_dir)],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "ROWS 4" in proc.stdout and "PAGED" in proc.stdout
+    assert "ROWS 4" in proc.stdout and "PAGED" in proc.stdout and "STAGED" in proc.stdout
 
 
 def test_standalone_defaults_to_cuda_and_raises_without_it():
