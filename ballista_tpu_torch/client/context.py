@@ -1,15 +1,17 @@
 """BallistaContext: the user-facing entry point.
 
-Reference analog: ``BallistaContext::standalone``
+Reference analog: ``BallistaContext::{standalone,remote}``
 (``arrow-ballista: ballista/client/src/context.rs:85-475``): DDL (CREATE
 EXTERNAL TABLE / SHOW TABLES / DROP) is handled client-side against the local
-table registry; queries plan locally and execute in-process on the torch
-engine's device (or on the host engine with ``backend="numpy"``). Before a
-plan runs, the memory governor (``engine/memory_model.py``) sizes its
-exchanges to the device budget, flags the joins no width fits as paged, and
-refuses a plan nothing fits (``PlanVerificationError``, rule PV007). Remote
-contexts, the serving caches, the rest of the plan verifier, EXPLAIN
-VERIFY/ANALYZE and span collection are not ported yet.
+table registry. A standalone context plans locally and executes in-process
+on the torch engine's device (or on the host engine with
+``backend="numpy"``); before a plan runs, the memory governor
+(``engine/memory_model.py``) sizes its exchanges to the device budget, flags
+the joins no width fits as paged, and refuses a plan nothing fits
+(``PlanVerificationError``, rule PV007). A remote context ships the logical
+plan to a scheduler (``client/remote.py``), which plans, governs and verifies
+it and runs its stages on the executors. The client-side serving caches and
+EXPLAIN VERIFY/ANALYZE are not ported yet.
 """
 from __future__ import annotations
 
@@ -234,13 +236,17 @@ class BallistaContext:
         config: Optional[BallistaConfig] = None,
         backend: Optional[str] = None,
         device: Optional[str] = None,
+        remote: Optional[tuple[str, int]] = None,
     ):
         self.config = config or BallistaConfig()
         self.backend = backend or self.config.executor_backend()
         if self.backend not in ("torch", "numpy"):
             raise BallistaError(f"unknown backend {self.backend!r} (torch|numpy)")
+        # (host, port) of the scheduler a remote context submits to; its
+        # executors pick their own engines and devices
+        self.remote = remote
         self.device: Optional[str] = None
-        if self.backend == "torch":
+        if self.backend == "torch" and remote is None:
             from ballista_tpu_torch.engine.torch_engine import resolve_device
 
             self.device = resolve_device(device)
@@ -252,6 +258,11 @@ class BallistaContext:
         # no budget applied)
         self.last_warnings: list[str] = []
         self.last_memory_report = None
+        # the last remote query's job and its client-side spans
+        # (client/remote.py fills them)
+        self.last_job_id: Optional[str] = None
+        self.last_trace_id: Optional[str] = None
+        self.last_trace_spans: list[dict] = []
         # reference: plugin_manager.rs scans the configured dir at startup;
         # entry-point UDFs load unconditionally so pip-installed plugins are
         # visible to every process that parses SQL
@@ -270,6 +281,15 @@ class BallistaContext:
         when CUDA is unavailable; pass ``device="cpu"`` to run the torch engine
         on the host."""
         return BallistaContext(config, backend=backend, device=device)
+
+    @staticmethod
+    def remote(
+        host: str, port: int, config: Optional[BallistaConfig] = None
+    ) -> "BallistaContext":
+        """A context whose queries run on the cluster behind the scheduler
+        at ``host:port``. Tables must be file-backed (the executors read
+        them); the session's settings ride every query to the tasks."""
+        return BallistaContext(config, remote=(host, port))
 
     # ---- registration (reference: context.rs read_*/register_*) ---------------------
     def register_parquet(self, name: str, path: str, **kw) -> None:
@@ -362,6 +382,13 @@ class BallistaContext:
     def _execute_plan(self, plan: LogicalPlan) -> pa.Table:
         self.last_warnings = []
         self.last_memory_report = None
+        if self.remote is not None:
+            # planned, governed and verified scheduler-side; its analyzer
+            # warnings come back in last_warnings
+            from ballista_tpu_torch.client.remote import execute_remote
+
+            self.last_engine_metrics = {}
+            return execute_remote(self, plan)
         optimized = optimize(plan, self.catalog)
         physical = self._govern(PhysicalPlanner(self.catalog, self.config).plan(optimized))
         engine = self._get_engine()

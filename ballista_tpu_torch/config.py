@@ -1008,10 +1008,14 @@ class ExecutorConfig:
             "BALLISTA_EXECUTOR_ORPHAN_TTL_S", 3600.0
         )
     )
-    backend: str = "jax"  # stage kernel backend
+    backend: str = "torch"  # stage engine: "torch" | "numpy"
+    # the torch engine's device: None means "cuda", which the executor
+    # refuses to start without; "cpu" runs the torch engine on the host
+    device: Optional[str] = None
     advertise_host: Optional[str] = None
     # mesh-group membership (multi-host slice): executors sharing one
-    # jax.distributed cluster; fused stages gang-schedule across the group
+    # collective group; fused stages gang-schedule across the group. Not
+    # ported yet: an executor given a mesh group refuses to start
     mesh_group_id: Optional[str] = None
     mesh_group_coordinator: Optional[str] = None  # host:port of process 0
     mesh_group_size: int = 0

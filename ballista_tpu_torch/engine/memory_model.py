@@ -229,6 +229,28 @@ def detect_device_budget_bytes(device=None) -> int:
     return _DETECTED[key]
 
 
+# total device memory (``torch.cuda.mem_get_info``'s second value) of the cards
+# executors register by name; measured on the card, never taken from a data
+# sheet (an H100 80GB HBM3 reports 85,017,493,504 bytes, whose 0.85 is the
+# 72,264,869,478-byte budget chip_smoke.py records)
+DEVICE_MEMORY_BYTES = {"NVIDIA H100 80GB HBM3": 85_017_493_504}
+
+
+def budget_from_device_kinds(kinds) -> int:
+    """The scheduler's budget from its executors' REGISTERED device kinds
+    (``ExecutorSpecification.device_kind``: a torch executor on a card
+    registers the card's name): :data:`DEVICE_MEMORY_BYTES` times
+    :data:`DEFAULT_BUDGET_FRACTION`, as :func:`detect_device_budget_bytes`
+    computes it on that card, so admission and the executor's safety net
+    plan against one number; the least over the kinds that map (a mixed
+    cluster plans for its smallest card). 0 when none maps (a CPU or host
+    executor, a card not in the table): no budget at admission. The
+    scheduler never probes a device of its own."""
+    budgets = [int(DEVICE_MEMORY_BYTES[k] * DEFAULT_BUDGET_FRACTION)
+               for k in set(kinds) if k in DEVICE_MEMORY_BYTES]
+    return min(budgets) if budgets else 0
+
+
 def resolve_budget_bytes(config, detected_bytes: Optional[int] = None, device=None) -> int:
     """The budget the governor plans against:
     ``ballista.engine.hbm_budget_bytes`` > 0 wins; 0 auto-detects — from

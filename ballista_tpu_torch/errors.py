@@ -22,14 +22,17 @@ class PlanningError(BallistaError):
 
 
 class PlanVerificationError(PlanningError):
-    """A plan refused at admission. Today one rule raises it, PV007: the
-    memory governor found no partition count or paged join that fits a stage
-    in the device budget. ``findings`` holds (rule, operator, message)
-    triples; the message carries the governor's fix hint."""
+    """A plan refused at admission: error-severity findings of the plan
+    verifier (``analysis/plan_verifier.py``), or PV007 alone where a
+    standalone context runs the memory governor. ``findings`` holds what
+    the raiser gave: ``Finding`` objects, or (rule, operator, message)
+    triples; the message carries each finding's fix hint."""
 
     def __init__(self, findings: list):
         self.findings = findings
-        msgs = "; ".join(f"[{rule}] {op}: {msg}" for rule, op, msg in findings)
+        triples = [(f.rule, f.operator, f.message) if hasattr(f, "rule") else tuple(f)
+                   for f in findings]
+        msgs = "; ".join(f"[{rule}] {op}: {msg}" for rule, op, msg in triples)
         super().__init__(f"plan verification failed: {msgs}")
 
 

@@ -29,6 +29,7 @@ kernel or raise. The module-level integer ``launches`` counts the launches.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -38,8 +39,10 @@ MAX_GROUPS = 32
 # per-block partials; the kernel cuts its grid to what this holds
 WORKSPACE_BYTES = 1 << 20
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0; executors' task threads
+# launch concurrently, so each increment holds the lock
 launches = 0
+_launches_lock = threading.Lock()
 
 _lib = None
 _workspaces: dict = {}
@@ -202,7 +205,8 @@ def grouped_sums_multi(vals: Sequence[Optional[torch.Tensor]], masks: Sequence[t
                                           k, ws.data_ptr(), ws.numel(), out.data_ptr(), stream)
             if err != 0:
                 raise RuntimeError(f"grouped_sums: kernel launch failed with CUDA error {err}")
-            launches += 1
+            with _launches_lock:
+                launches += 1
     return out
 
 

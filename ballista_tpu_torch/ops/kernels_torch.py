@@ -31,6 +31,7 @@ the only host syncs are the ones ``to_host`` needs to size its fetch.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -2141,6 +2142,16 @@ def sum_range(c: DeviceCol, n_pad: int) -> Optional[tuple[int, int]]:
 # grouped_sums kernel; more groups use index_add_ / scatter_reduce
 MASKED_SEG_K = 32
 
+# grouped_sums_multi calls made by SegSums on each thread
+_GS_CALLS = threading.local()
+
+
+def grouped_sums_calls() -> int:
+    """The grouped_sums calls ``SegSums.compute`` has made on this thread:
+    one launch each on the card unless a call is wider than a launch takes.
+    An executor reports a task's share in ``op.GroupedSums.calls``."""
+    return getattr(_GS_CALLS, "n", 0)
+
 
 def _mask(row_valid, null):
     return row_valid if null is None else (row_valid & ~null)
@@ -2216,6 +2227,7 @@ class SegSums:
                     else self._cols[i][0].to(acc).contiguous() for i in idx]
             masks = [self._cols[i][1] for i in idx]
             res = GS.grouped_sums_multi(vals, masks, ids.contiguous(), k)
+            _GS_CALLS.n = grouped_sums_calls() + 1
             for row, i in enumerate(idx):
                 v = self._cols[i][0]
                 out[i] = res[row] if v is None else res[row].to(v.dtype)

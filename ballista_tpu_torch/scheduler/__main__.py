@@ -1,0 +1,112 @@
+"""Scheduler binary: ``python -m ballista_tpu_torch.scheduler``.
+
+Reference analog: ``ballista-scheduler`` (``scheduler/src/bin/main.rs`` +
+``scheduler_config_spec.toml``). Env prefix BALLISTA_SCHEDULER_* mirrors the
+reference's configure_me env support.
+
+The REST API and UI (``--api-port``) and the durable cluster backends are
+not ported yet: asking for the API exits with status 2, and the cluster state
+is the in-memory one.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import signal
+import sys
+import time
+
+from ballista_tpu_torch.config import SchedulerConfig
+from ballista_tpu_torch.scheduler.server import SchedulerServer
+
+
+def main() -> None:
+    p = argparse.ArgumentParser("ballista-scheduler (PyTorch/CUDA port)")
+    env = os.environ.get
+    p.add_argument("--bind-host", default=env("BALLISTA_SCHEDULER_BIND_HOST", "0.0.0.0"))
+    p.add_argument("--bind-port", type=int, default=int(env("BALLISTA_SCHEDULER_BIND_PORT", "50050")))
+    p.add_argument("--scheduling-policy", choices=["pull", "push"],
+                   default=env("BALLISTA_SCHEDULER_SCHEDULING_POLICY", "pull"))
+    p.add_argument("--task-distribution", choices=["bias", "round-robin", "consistent-hash"],
+                   default=env("BALLISTA_SCHEDULER_TASK_DISTRIBUTION", "bias"))
+    p.add_argument("--executor-timeout-seconds", type=float, default=180.0)
+    p.add_argument("--api-port", type=int, default=int(env("BALLISTA_SCHEDULER_API_PORT", "0")),
+                   help="REST API port (0 = disabled; any other value is "
+                        "refused until the REST API is ported)")
+    p.add_argument("--expiry-interval-seconds", type=float,
+                   default=float(env("BALLISTA_SCHEDULER_EXPIRY_INTERVAL", "15")))
+    p.add_argument("--plugin-dir", default=env("BALLISTA_SCHEDULER_PLUGIN_DIR", None),
+                   help="directory of UDF plugin modules loaded at startup — "
+                        "the SQL planner must know plugin function names/types "
+                        "(reference: plugin_manager.rs startup scan)")
+    p.add_argument("--obs-recorder", type=lambda v: v.lower() not in ("0", "false"),
+                   default=env("BALLISTA_SCHEDULER_OBS_RECORDER", "true").lower() not in ("0", "false"),
+                   help="flight recorder: latency histograms + gauge time series")
+    p.add_argument("--obs-sample-interval", type=float,
+                   default=float(env("BALLISTA_SCHEDULER_OBS_SAMPLE_INTERVAL", "5.0")),
+                   help="gauge sampling interval (seconds)")
+    p.add_argument("--obs-profiler", action="store_true",
+                   default=env("BALLISTA_SCHEDULER_OBS_PROFILER", "").lower() in ("1", "true"),
+                   help="start the wall-clock sampling profiler")
+    p.add_argument("--obs-profiler-hz", type=float,
+                   default=float(env("BALLISTA_SCHEDULER_OBS_PROFILER_HZ", "67")))
+    p.add_argument("--trace-max-jobs", type=int,
+                   default=int(env("BALLISTA_SCHEDULER_TRACE_MAX_JOBS", "64")),
+                   help="trace store LRU bound (jobs)")
+    p.add_argument("--trace-max-bytes", type=int,
+                   default=int(env("BALLISTA_SCHEDULER_TRACE_MAX_BYTES", str(64 * 1024 * 1024))),
+                   help="trace store byte budget across retained jobs")
+    p.add_argument("--log-level", default="INFO")
+    p.add_argument("--config", default=None,
+                   help="JSON config file; keys match the CLI flag names "
+                        "(reference: configure_me's optional config file)")
+    args = p.parse_args()
+    if args.config:
+        import json as _json
+
+        for k, v in _json.load(open(args.config)).items():
+            attr = k.replace("-", "_")
+            if hasattr(args, attr):
+                setattr(args, attr, v)
+
+    if args.api_port:
+        print("ballista-scheduler: the REST API (--api-port) is not ported to "
+              "ballista_tpu_torch yet (scheduler/api.py, ui.py, graph_dot.py, "
+              "obs/perfetto.py)", file=sys.stderr, flush=True)
+        sys.exit(2)
+    logging.basicConfig(
+        level=args.log_level,
+        format="%(asctime)s %(levelname)s %(name)s %(message)s",
+    )
+    cfg = SchedulerConfig(
+        bind_host=args.bind_host,
+        bind_port=args.bind_port,
+        scheduling_policy=args.scheduling_policy,
+        task_distribution=args.task_distribution,
+        executor_timeout_seconds=args.executor_timeout_seconds,
+        expire_dead_executors_interval_seconds=args.expiry_interval_seconds,
+        obs_recorder_enabled=args.obs_recorder,
+        obs_sample_interval_s=args.obs_sample_interval,
+        obs_profiler=args.obs_profiler,
+        obs_profiler_hz=args.obs_profiler_hz,
+        trace_max_jobs=args.trace_max_jobs,
+        trace_max_bytes=args.trace_max_bytes,
+    )
+    from ballista_tpu_torch.utils.udf import load_plugins
+
+    load_plugins(args.plugin_dir)
+    server = SchedulerServer(cfg)
+    port = server.start(args.bind_port)
+    print(f"ballista-tpu-torch scheduler listening on {args.bind_host}:{port}", flush=True)
+
+    stop = [False]
+    signal.signal(signal.SIGINT, lambda *a: stop.__setitem__(0, True))
+    signal.signal(signal.SIGTERM, lambda *a: stop.__setitem__(0, True))
+    while not stop[0]:
+        time.sleep(0.2)
+    server.stop()
+
+
+if __name__ == "__main__":
+    main()

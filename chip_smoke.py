@@ -80,7 +80,30 @@ Phases, each of which passes or ends the run with a non-zero exit:
              stage of at least 1 MB must measure no more than its eager
              estimate (``memory_model.estimate_eager_program_bytes``). A warm
              staged q1 and S2 at both depths are profiled (busy share).
-8. timing  — grouped_sums at one column (2^21 rows, k = 12, int64), at
+8. distributed — TPC-H through the port's scheduler, executors and remote
+             client, the way Ballista is deployed. (1) The scheduler and
+             two torch executors on ``cuda`` in this process
+             (``start_standalone_cluster``: 2 task slots each, pull mode,
+             one CUDA context, one set of leaf caches and one launch count
+             between them), q1, q3, q5 and q12 cold (after
+             ``clear_caches()``) then warm through
+             ``BallistaContext.remote``: rows held to the exact reference and
+             the host engine as in the slice; zero host fallbacks in every
+             stage's metrics; ``op.DeviceExecute.count`` above 0 in every
+             stage that ran with an aggregate or a join above a shuffle read
+             (a warm run may adopt stages from the scheduler's exchange
+             cache: they run no task); grouped_sums launches (zeroed just
+             before each run, read just after) equal to the grouped_sums
+             calls the job graph's tasks report (``op.GroupedSums.calls``,
+             one per aggregate or merge of at most 32 groups); the
+             scheduler's admission budget equal to what the executors'
+             engines detect on the card. (2) ``python -m
+             ballista_tpu_torch.executor --backend torch`` started twice as
+             OS processes against a scheduler in this process: q3 and q5
+             once each, rows exact, device stages as above, then SIGTERM:
+             both exit 0 and their work dirs are gone. Every run prints its
+             wall, stages, tasks and shuffle bytes.
+9. timing  — grouped_sums at one column (2^21 rows, k = 12, int64), at
              the largest and smallest stages of q1's warm run (the fused
              program's partial aggregate and final merge), at the largest
              stage of its unfused run, and at a
@@ -103,6 +126,7 @@ import contextlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -1336,6 +1360,203 @@ def run_staged_phase(device: str, tables: dict, tag: str, refs: tuple,
     return out, prof
 
 
+# ---- 8. distributed ------------------------------------------------------------------
+DIST_QUERIES = ("q1", "q3", "q5", "q12")
+PROC_QUERIES = ("q3", "q5")
+# how long an executor process may take to import torch, reach the card and
+# register before the phase fails
+EXECUTOR_START_S = 120
+
+
+def job_summary(graph) -> dict:
+    """A finished job's graph: stages, tasks, stages adopted from the
+    exchange cache, shuffle bytes written by its tasks, its stages' merged
+    task metrics, and the stages whose device evidence is missing: every
+    stage that ran (not adopted) with an aggregate or a join above a
+    shuffle read must show ``op.DeviceExecute.count`` above 0."""
+    from ballista_tpu_torch.plan import physical as P
+
+    stages = graph.stages.values()
+    ran = [s for s in stages if not getattr(s, "from_cache", False)]
+    no_device = []
+    for s in ran:
+        nodes = list(P.walk_physical(s.plan))
+        heavy = (any(isinstance(n, P.UnresolvedShuffleExec) for n in nodes)
+                 and any(isinstance(n, (P.HashAggregateExec, P.HashJoinExec)) for n in nodes))
+        if heavy and s.stage_metrics.get("op.DeviceExecute.count", 0.0) <= 0:
+            no_device.append(s.stage_id)
+    metrics: dict = {}
+    for s in ran:
+        _fold(metrics, s.stage_metrics)
+    shuffle = sum(int(loc.get("num_bytes", 0) or 0) for s in ran for t in s.task_infos
+                  if t is not None for loc in t.locations)
+    return {"stages": len(graph.stages), "tasks": graph.total_task_count(),
+            "adopted": len(graph.stages) - len(ran), "shuffle_bytes": shuffle,
+            "metrics": metrics, "no_device": no_device,
+            "calls": int(metrics.get("op.GroupedSums.calls", 0.0)),
+            "budget": graph.memory_report.budget_bytes if graph.memory_report else 0}
+
+
+def check_job(label: str, job: dict) -> None:
+    """Zero host fallbacks and device execution in every aggregate or join
+    stage above a shuffle read."""
+    fallbacks = job["metrics"].get("op.HostFallback.count", 0.0)
+    if fallbacks:
+        raise AssertionError(f"distributed {label}: {fallbacks:g} host fallbacks")
+    if job["no_device"]:
+        raise AssertionError(f"distributed {label}: stages {job['no_device']} above a shuffle "
+                             "read ran no device stage")
+
+
+def report_job(label: str, wall: float, job: dict, launches, card: str) -> None:
+    m = job["metrics"]
+    print(f"distributed {label}: wall {wall:.3f} s, {job['stages']} stages "
+          f"({job['adopted']} adopted from the exchange cache), {job['tasks']} tasks, shuffle "
+          f"bytes written {job['shuffle_bytes']}, device stages "
+          f"{m.get('op.DeviceExecute.count', 0.0):g}, device time "
+          f"{m.get('op.DeviceExecute.time_s', 0.0):.3f} s, grouped_sums calls reported by the "
+          f"tasks {job['calls']}, launches counted {launches}, host fallbacks "
+          f"{m.get('op.HostFallback.count', 0.0):g}, admission budget {job['budget']} "
+          f"bytes [{card}]", flush=True)
+
+
+def start_executor(port: int, device: str) -> tuple:
+    """``python -m ballista_tpu_torch.executor --backend torch`` as an OS
+    process of its own, registered with the scheduler at ``port``."""
+    cmd = [sys.executable, "-m", "ballista_tpu_torch.executor", "--backend", "torch",
+           "--scheduler-host", "127.0.0.1", "--scheduler-port", str(port), "--port", "0",
+           "--task-slots", "2", "--log-level", "WARNING"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    return subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def await_started(proc) -> str:
+    """The executor's work dir, from the line it prints once registered."""
+    line = proc.stdout.readline()
+    if "started" not in line:
+        proc.kill()
+        raise AssertionError(f"executor did not start (exit {proc.wait(timeout=30)}): "
+                             f"{line!r} {proc.stderr.read()[-2000:]}")
+    return line.rsplit("work dir ", 1)[1].strip()
+
+
+def run_distributed_phase(device: str, tables: dict, tag: str, refs: tuple) -> dict:
+    """The distributed phase (see the module docstring). Returns
+    {("distributed", query, run): the run's record}."""
+    import ballista_tpu_torch.engine.memory_model as MM
+    import ballista_tpu_torch.ops.grouped_sums as GS
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.client.standalone import start_standalone_cluster
+    from ballista_tpu_torch.config import SchedulerConfig
+    from ballista_tpu_torch.engine import torch_engine as TE
+    from ballista_tpu_torch.scheduler.server import SchedulerServer
+
+    exact, want = refs
+    out = {}
+    on_card = device.startswith("cuda")
+    # 1. two torch executors in this process (one CUDA context, one set of
+    # leaf caches, one launch count between them)
+    work = os.path.join(DATA_DIR, "distributed")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.time()
+    cluster = start_standalone_cluster(n_executors=2, task_slots=2, device=device,
+                                       work_dir=work)
+    print(f"in-process cluster: scheduler and 2 torch executors on {device} (2 task slots "
+          f"each, pull mode) up in {time.time() - t0:.3f} s", flush=True)
+    try:
+        ctx = BallistaContext.remote("127.0.0.1", cluster.scheduler_port)
+        for name, location in tables.items():
+            ctx.register_parquet(name, location)
+        TE.clear_caches()
+        for q in DIST_QUERIES:
+            sql, expect = want[q]
+            for run in ("cold", "warm"):
+                with counting() as rec:
+                    t0 = time.time()
+                    table = ctx.sql(sql).collect()
+                    wall = time.time() - t0
+                job = job_summary(cluster.scheduler.tasks.get_job(ctx.last_job_id))
+                report_job(f"{q} {run}", wall, job, rec["launches"], tag)
+                # stages adopted from the exchange cache carry the rounding
+                # of the cold run that wrote their pieces
+                presums = rec["presums"] + (
+                    out[("distributed", q, "cold")]["presums"] if job["adopted"] else [])
+                check_result(table, expect, exact[q], q, presums)
+                check_job(f"{q} {run}", job)
+                if on_card and rec["launches"] != job["calls"]:
+                    raise AssertionError(f"distributed {q} {run}: {rec['launches']} grouped_sums "
+                                         f"launches, the graph's tasks made {job['calls']} calls")
+                if q in LAUNCHING and run == "cold" and job["calls"] <= 0:
+                    raise AssertionError(f"distributed {q} cold: grouped_sums never called")
+                out[("distributed", q, run)] = {
+                    "table": table, "wall": wall, "launches": rec["launches"],
+                    "shapes": rec["shapes"], "presums": rec["presums"],
+                    "metrics": job["metrics"], "job": job}
+        # admission plans against the budget the executors' card gives, which
+        # is what their engines' safety net detects on it
+        kind = torch.cuda.get_device_name(0) if on_card else "cpu"
+        admitted = out[("distributed", "q3", "cold")]["job"]["budget"]
+        detected = MM.detect_device_budget_bytes(device) if on_card else 0
+        if kind in MM.DEVICE_MEMORY_BYTES and admitted != detected:
+            raise AssertionError(f"admission budget {admitted} for {kind!r}, the card's "
+                                 f"engines detect {detected}")
+        print(f"admission budget for {kind!r}: {admitted} bytes; detected on the card "
+              f"{detected} bytes [{tag}]", flush=True)
+    finally:
+        cluster.stop()
+
+    # 2. two executor processes against a scheduler in this process
+    sched = SchedulerServer(SchedulerConfig())
+    port = sched.start(0)
+    procs, dirs = [], []
+    t0 = time.time()
+    try:
+        procs = [start_executor(port, device) for _ in range(2)]
+        dirs = [await_started(p) for p in procs]
+        deadline = time.time() + EXECUTOR_START_S
+        while len(sched.cluster.alive_executors()) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        print(f"2 executor processes ({' '.join(procs[0].args[1:5])}) registered in "
+              f"{time.time() - t0:.3f} s", flush=True)
+        ctx = BallistaContext.remote("127.0.0.1", port)
+        for name, location in tables.items():
+            ctx.register_parquet(name, location)
+        for q in PROC_QUERIES:
+            sql, expect = want[q]
+            t1 = time.time()
+            table = ctx.sql(sql).collect()
+            wall = time.time() - t1
+            job = job_summary(sched.tasks.get_job(ctx.last_job_id))
+            report_job(f"{q} processes", wall, job, "not visible here", tag)
+            check_result(table, expect, exact[q], q, [])
+            check_job(f"{q} processes", job)
+            if q in LAUNCHING and job["calls"] <= 0:
+                raise AssertionError(f"distributed {q} processes: grouped_sums never called")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        codes = []
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=60))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes.append(p.wait(timeout=30))
+        sched.stop()
+    if codes != [0] * len(procs):
+        raise AssertionError(f"executor processes exited {codes}: "
+                             f"{[p.stderr.read()[-2000:] for p in procs]}")
+    left = [d for d in dirs if os.path.exists(d)]
+    if left:
+        raise AssertionError(f"executor work dirs left behind: {left}")
+    print(f"2 executor processes stopped by SIGTERM, exit codes {codes}, work dirs removed",
+          flush=True)
+    return out
+
+
 def profile_run(ctx, sql: str, owners: dict = None, work=None) -> dict:
     """One run (``ctx.sql(sql).collect()``, or ``work()`` when it is
     given) under torch.profiler: its wall, the device busy time in it
@@ -1507,7 +1728,8 @@ def report_runs(results: dict, prof: dict, card: str) -> None:
 
 
 def rehearse(data_dir: str, parts: int = 2) -> None:
-    """The hash and slice phases on the CPU over the TPC-H tables under
+    """The hash, slice, windows, staged and distributed phases on the CPU
+    over the TPC-H tables under
     ``data_dir`` (the tests' SF 0.01, ``parts`` files per large table:
     ``tests/.data/torch_tpch_sf001``):
 
@@ -1532,6 +1754,7 @@ def rehearse(data_dir: str, parts: int = 2) -> None:
         results, _ = run_slice("cpu", tables, 0.01, parts, "cpu", refs=refs)
         results.update(run_windows("cpu", tables, "cpu")[0])
         results.update(run_staged_phase("cpu", tables, "cpu", refs, small=True)[0])
+        results.update(run_distributed_phase("cpu", tables, "cpu", refs))
     finally:
         GS.grouped_sums_multi = real
     report_runs(results, {}, "cpu")
@@ -1592,6 +1815,11 @@ def main() -> int:
     results.update(sresults)
     prof.update(sprof)
     print(f"staged phase {time.time() - t0:.1f} s", flush=True)
+
+    phase("distributed")
+    t0 = time.time()
+    results.update(run_distributed_phase("cuda", tables, card, refs))
+    print(f"distributed phase {time.time() - t0:.1f} s [{card}]", flush=True)
     report_runs(results, prof, card)
     if ESTIMATE_MISSES:
         for miss in ESTIMATE_MISSES:

@@ -601,3 +601,37 @@ def test_merge_mode_on_card_matches_the_host_fold(card):
             assert [round(v * 100) for v in dev.column(c).to_pylist()] == exact, c
         else:
             assert dev.column(c).to_pylist() == host.column(c).to_pylist(), c
+
+
+def test_two_executors_on_card_run_q1_with_launches_counted(card, sf001_tables, tmp_path):
+    """q1 through the port's scheduler and two in-process torch executors on
+    ``cuda`` (one CUDA context and one launch count between them): the rows
+    of the port's CPU run, and grouped_sums launched exactly as often as the
+    job graph's tasks report grouped_sums calls (``op.GroupedSums.calls``)."""
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.client.standalone import start_standalone_cluster
+    from ballista_tpu_torch.ops import grouped_sums as GS
+
+    on_cpu = BallistaContext.standalone(device="cpu")
+    for t, path in sf001_tables.items():
+        on_cpu.register_parquet(t, path)
+    with open(os.path.join(REPO, "benchmarks", "queries", "q1.sql")) as f:
+        sql = f.read()
+    want = on_cpu.sql(sql).collect()
+    cluster = start_standalone_cluster(n_executors=2, task_slots=2, work_dir=str(tmp_path))
+    try:
+        ctx = BallistaContext.remote("127.0.0.1", cluster.scheduler_port)
+        for t, path in sf001_tables.items():
+            ctx.register_parquet(t, path)
+        GS.launches = 0
+        got = ctx.sql(sql).collect()
+        launches = GS.launches
+        graph = cluster.scheduler.tasks.get_job(ctx.last_job_id)
+        calls = sum(s.stage_metrics.get("op.GroupedSums.calls", 0.0)
+                    for s in graph.stages.values())
+        assert all(s.stage_metrics.get("op.HostFallback.count", 0.0) == 0.0
+                   for s in graph.stages.values())
+    finally:
+        cluster.stop()
+    _assert_rows_match(got, want, {n for n in got.column_names if n.startswith("avg")})
+    assert launches == calls > 0

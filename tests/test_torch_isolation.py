@@ -66,9 +66,10 @@ def _top_level_names(path) -> frozenset:
 
 def test_no_jax_or_reference_imports_and_all_port_imports_resolve():
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
-    # the sub-packages of the shuffle slice are walked like the rest
+    # the sub-packages of the shuffle and distributed slices are walked like the rest
     walked = {os.path.relpath(os.path.dirname(p), PORT) for p in _port_sources()}
-    assert {"obs", "analysis", "shuffle", "scheduler", "utils", "engine"} <= walked
+    assert {"obs", "analysis", "shuffle", "scheduler", "utils", "engine",
+            "executor", "client", "proto"} <= walked
     bad = []
     for path in _port_sources():
         rel = os.path.relpath(path, REPO)
@@ -174,15 +175,33 @@ got, _, chunks, fb = staged(agg)
 assert chunks > 0 and fb == 0, (chunks, fb)
 assert got.sort_by(keys).equals(ctx.sql(agg).collect().sort_by(keys))
 print("STAGED", int(chunks))
+
+# q1 through the port's scheduler and two torch executors, by the remote client
+from ballista_tpu_torch.client.standalone import start_standalone_cluster
+cluster = start_standalone_cluster(n_executors=2, task_slots=2, device="cpu",
+                                   work_dir=tempfile.mkdtemp())
+try:
+    rctx = BallistaContext.remote("127.0.0.1", cluster.scheduler_port)
+    for t in TPCH_TABLES:
+        rctx.register_parquet(t, os.path.join({data!r}, t))
+    assert rctx.sql(q1).collect().equals(out)
+    graph = cluster.scheduler.tasks.get_job(rctx.last_job_id)
+    ran = sum(s.stage_metrics.get("op.DeviceExecute.count", 0.0) for s in graph.stages.values())
+    assert ran > 0 and all(s.stage_metrics.get("op.HostFallback.count", 0.0) == 0.0
+                           for s in graph.stages.values())
+    print("REMOTE", len(graph.stages))
+finally:
+    cluster.stop()
 assert not any(k == "jax" or k.startswith(("jax.", "ballista_tpu."))
                for k, v in sys.modules.items() if v is not None)
 """
 
 
 def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
-    """q1, a device window, a paged q3 join, and q1 and a streamed final
-    aggregate stage by stage through shuffle files, with JAX and the JAX
-    package unimportable."""
+    """q1, a device window, a paged q3 join, q1 and a streamed final
+    aggregate stage by stage through shuffle files, and q1 through the
+    port's scheduler and two executors by the remote client, with JAX and
+    the JAX package unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", _Q1_BLOCKED.format(repo=REPO, data=torch_tpch_dir)],
@@ -190,6 +209,7 @@ def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ROWS 4" in proc.stdout and "PAGED" in proc.stdout and "STAGED" in proc.stdout
+    assert "REMOTE" in proc.stdout
 
 
 def test_standalone_defaults_to_cuda_and_raises_without_it():
@@ -211,3 +231,28 @@ def test_unknown_backend_rejected():
 
     with pytest.raises(BallistaError, match="unknown backend"):
         BallistaContext.standalone(backend="jax")
+
+
+def test_executor_process_without_cuda_exits_with_a_reason():
+    """``python -m ballista_tpu_torch.executor`` with no card and no
+    ``--device cpu``: exit status 2 and the reason on stderr, never a quiet
+    start on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the executor would start on it")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "ballista_tpu_torch.executor", "--scheduler-port", "1"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2, (proc.returncode, proc.stderr[-2000:])
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_scheduler_process_refuses_the_rest_api():
+    """The REST API is not ported: asking for it exits with status 2 and
+    names what is missing."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "ballista_tpu_torch.scheduler", "--bind-port", "0",
+         "--api-port", "8199"], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2, (proc.returncode, proc.stderr[-2000:])
+    assert "REST API" in proc.stderr
