@@ -10,8 +10,16 @@ on the torch engine's device (or on the host engine with
 the joins no width fits as paged, and refuses a plan nothing fits
 (``PlanVerificationError``, rule PV007). A remote context ships the logical
 plan to a scheduler (``client/remote.py``), which plans, governs and verifies
-it and runs its stages on the executors. The client-side serving caches and
-EXPLAIN VERIFY/ANALYZE are not ported yet.
+it and runs its stages on the executors.
+
+A standalone query records a trace: a ``query`` span of the client, and the
+engine's operator and device spans under it (``last_trace_spans``). The
+session's plan and result caches (``ballista.serving.plan_cache`` and
+``ballista.serving.result_cache``) serve repeat statements. EXPLAIN VERIFY
+runs the plan verifier over the governed plan without executing it; EXPLAIN
+ANALYZE runs the query with tracing and renders the plan that ran, each
+operator annotated with its spans (``obs/explain.py``); over a remote context
+it renders the scheduler's whole trace of the job.
 """
 from __future__ import annotations
 
@@ -263,6 +271,16 @@ class BallistaContext:
         self.last_job_id: Optional[str] = None
         self.last_trace_id: Optional[str] = None
         self.last_trace_spans: list[dict] = []
+        # the serving caches' outcome for the last statement:
+        # {"plan_cache": "hit|miss", "result_cache": "hit|miss"}, a key
+        # absent when its cache was off or bypassed
+        self.last_serving: dict = {}
+        # the session's serving caches, built on first use
+        self._plan_cache = None
+        self._result_cache = None
+        # the governed plan the last standalone query ran (EXPLAIN ANALYZE
+        # renders it)
+        self._last_executed_physical = None
         # reference: plugin_manager.rs scans the configured dir at startup;
         # entry-point UDFs load unconditionally so pip-installed plugins are
         # visible to every process that parses SQL
@@ -334,6 +352,11 @@ class BallistaContext:
 
     # ---- SQL ----------------------------------------------------------------------
     def sql(self, sql: str) -> DataFrame:
+        # reset per statement, so a statement served locally (SHOW TABLES,
+        # EXPLAIN, DDL) never shows an earlier query's warnings or verdicts
+        self.last_warnings = []
+        self.last_memory_report = None
+        self.last_serving = {}
         stmt = parse_sql(sql)
         if isinstance(stmt, CreateExternalTable):
             if stmt.file_format == "parquet":
@@ -359,10 +382,10 @@ class BallistaContext:
                 raise PlanningError(f"table {stmt.name!r} not found")
             return self._values_df([("result", DataType.STRING)], [["dropped"]])
         if isinstance(stmt, Explain):
-            if stmt.analyze or stmt.verify:
-                raise SqlError(
-                    "EXPLAIN ANALYZE/VERIFY are not ported to ballista_tpu_torch yet"
-                )
+            if stmt.analyze:
+                return self._explain_analyze(stmt.query)
+            if stmt.verify:
+                return self._explain_verify(stmt.query)
             # logical + physical plans (reference: EXPLAIN shows DataFusion's
             # logical/physical plans)
             logical = optimize(SqlPlanner(self.catalog.schemas()).plan(stmt.query), self.catalog)
@@ -378,21 +401,155 @@ class BallistaContext:
         plan = SqlPlanner(self.catalog.schemas()).plan(stmt)
         return DataFrame(self, plan)
 
+    _FINDING_FIELDS = [
+        ("severity", DataType.STRING),
+        ("rule", DataType.STRING),
+        ("operator", DataType.STRING),
+        ("message", DataType.STRING),
+    ]
+
+    def _explain_verify(self, query) -> "DataFrame":
+        """EXPLAIN VERIFY: the plan verifier's findings over the logical
+        plan, the governed physical plan and its stage split, without
+        executing anything. The scheduler runs the same rules at submission,
+        where an error finding refuses the job."""
+        from ballista_tpu_torch.analysis import verify_logical, verify_submission
+        from ballista_tpu_torch.config import BALLISTA_TPU_FUSE_EXCHANGE_MAX_ROWS
+        from ballista_tpu_torch.engine.memory_model import govern_with_config
+
+        logical = optimize(SqlPlanner(self.catalog.schemas()).plan(query), self.catalog)
+        try:
+            physical = PhysicalPlanner(self.catalog, self.config).plan(logical)
+        except Exception as e:  # noqa: BLE001 - the report is the product here
+            rows = [f.as_row() for f in verify_logical(logical)]
+            rows.append(["error", "PLAN", "physical planner",
+                         f"physical planning failed: {e}"])
+            return self._values_df(self._FINDING_FIELDS, rows)
+        # the governor's dry run (PV007 verdicts), for the one device the
+        # port plans for; the plan verified is the governed one, which
+        # standalone execution runs and the scheduler's gate verifies
+        governed, memory_report = govern_with_config(
+            physical, self.config, 1, detected_budget_bytes=self._detected_budget(),
+            device=self.device)
+        findings = verify_submission(
+            logical, governed,
+            fuse_exchange_max_rows=self.config.get(BALLISTA_TPU_FUSE_EXCHANGE_MAX_ROWS),
+            memory_report=memory_report,
+        )
+        rows = [f.as_row() for f in findings]
+        if not rows:
+            rows = [["info", "OK", "", "plan verified: no issues found"]]
+        return self._values_df(self._FINDING_FIELDS, rows)
+
+    def _explain_analyze(self, query) -> "DataFrame":
+        """EXPLAIN ANALYZE: run the query with tracing, then render the
+        physical plan annotated with each operator's rows and elapsed time
+        and the query's device, memory and shuffle rollups, from its spans."""
+        from ballista_tpu_torch.obs.explain import render_explain_analyze
+
+        logical = SqlPlanner(self.catalog.schemas()).plan(query)
+        physical = PhysicalPlanner(self.catalog, self.config).plan(
+            optimize(logical, self.catalog))
+        # the result is discarded: the spans are the output. Standalone runs
+        # this physical plan; a scheduler plans its own copy, so over a
+        # remote context the rendered tree is the client's view of it
+        self._execute_plan(logical, physical=physical)
+        spans = self.last_trace_spans
+        job_id = self.last_job_id
+        if self.remote is not None and job_id:
+            # the scheduler's TraceStore holds the whole distributed trace,
+            # the client's spans included (execute_remote reported them)
+            from ballista_tpu_torch.client.remote import fetch_trace
+
+            spans = fetch_trace(self, job_id) or spans
+        if self.remote is None:
+            physical = self._last_executed_physical or physical
+        text = render_explain_analyze(physical, spans, job_id=job_id)
+        return self._values_df(
+            [("plan_type", DataType.STRING), ("plan", DataType.STRING)],
+            [["plan_with_metrics", text]],
+        )
+
     # ---- execution ------------------------------------------------------------------
-    def _execute_plan(self, plan: LogicalPlan) -> pa.Table:
+    def _execute_plan(self, plan: LogicalPlan, physical=None) -> pa.Table:
+        """Run ``plan`` (or the given ``physical`` plan of it, which bypasses
+        the serving caches: EXPLAIN ANALYZE runs to produce spans)."""
+        from ballista_tpu_torch.config import (
+            BALLISTA_SERVING_PLAN_CACHE,
+            BALLISTA_SERVING_RESULT_CACHE,
+        )
+
         self.last_warnings = []
+        # a remote query is governed scheduler-side: no local report is its
         self.last_memory_report = None
+        self.last_serving = {}
+        result_cache_on = bool(self.config.get(BALLISTA_SERVING_RESULT_CACHE))
+        plan_cache_on = bool(self.config.get(BALLISTA_SERVING_PLAN_CACHE))
+        # one key serves both caches (the plan's repr and hash are the
+        # statement's fingerprint cost)
+        skey = (self._serving_key(plan)
+                if physical is None and (result_cache_on or plan_cache_on) else None)
+        rkey = skey if result_cache_on else None
+        if rkey is not None:
+            cached = self._get_result_cache().get(rkey)
+            if cached is not None:
+                self.last_serving["result_cache"] = "hit"
+                return cached
+            self.last_serving["result_cache"] = "miss"
         if self.remote is not None:
             # planned, governed and verified scheduler-side; its analyzer
             # warnings come back in last_warnings
             from ballista_tpu_torch.client.remote import execute_remote
 
             self.last_engine_metrics = {}
-            return execute_remote(self, plan)
-        optimized = optimize(plan, self.catalog)
-        physical = self._govern(PhysicalPlanner(self.catalog, self.config).plan(optimized))
+            result = execute_remote(self, plan)
+            if rkey is not None:
+                self._get_result_cache().put(rkey, result)
+            return result
+        from ballista_tpu_torch.obs import tracing as obs
+
+        collector = obs.SpanCollector()
+        trace_id = obs.new_trace_id()
+        root = collector.start("query", trace_id=trace_id, service="client")
+        # the plan cache holds governed plans, encoded: each hit decodes a
+        # fresh tree; a plan that does not serialize (memory tables) bypasses
+        pkey = skey if plan_cache_on else None
+        governed = False
+        if pkey is not None:
+            entry = self._get_plan_cache().get(pkey)
+            if entry is not None:
+                from ballista_tpu_torch.plan.serde import decode_physical
+
+                physical = decode_physical(entry.plan_bytes)
+                self.last_warnings = list(entry.warnings)
+                self.last_memory_report = entry.memory_report
+                governed = True
+                self.last_serving["plan_cache"] = "hit"
+        if physical is None:
+            optimized = optimize(plan, self.catalog)
+            physical = PhysicalPlanner(self.catalog, self.config).plan(optimized)
+        if not governed:
+            physical = self._govern(physical)
+            if pkey is not None:
+                self.last_serving["plan_cache"] = "miss"
+                try:
+                    from ballista_tpu_torch.plan.serde import encode_physical
+                    from ballista_tpu_torch.scheduler.serving import PlanEntry
+
+                    self._get_plan_cache().put(pkey, PlanEntry(
+                        pkey[0], encode_physical(physical),
+                        list(self.last_warnings), self.last_memory_report,
+                    ))
+                except Exception:  # noqa: BLE001 - not cacheable: bypass
+                    pass
+        self._last_executed_physical = physical
         engine = self._get_engine()
-        batches = engine.execute_all(physical)
+        engine.trace_ctx = obs.TraceCtx(collector, trace_id, root.span_id)
+        obs.set_ambient(collector, trace_id, root.span_id)
+        try:
+            batches = engine.execute_all(physical)
+        finally:
+            obs.clear_ambient()
         # per-query operator metrics for callers (device accounting) — the
         # engine itself is per-query
         self.last_engine_metrics = dict(engine.op_metrics)
@@ -400,7 +557,60 @@ class BallistaContext:
         tables = [b.to_arrow() for b in batches if b.num_rows or len(batches) == 1]
         if not tables:
             tables = [ColumnBatch.empty(out_schema).to_arrow()]
-        return pa.concat_tables(tables)
+        result = pa.concat_tables(tables)
+        root.set("rows", result.num_rows)
+        root.finish()
+        self.last_trace_id = trace_id
+        self.last_trace_spans = collector.drain()
+        self.last_job_id = None
+        if rkey is not None:
+            self._get_result_cache().put(rkey, result)
+        return result
+
+    # ---- serving caches ---------------------------------------------------------------
+    def _serving_key(self, plan: LogicalPlan):
+        """The statement's cache key: the plan's identity, the catalog's
+        version (any registration invalidates), the planning settings'
+        digest (the scheduler's, so both tiers agree on what splits a key),
+        the backend, device and endpoint. None: not cacheable."""
+        import hashlib
+
+        from ballista_tpu_torch.scheduler.serving import settings_digest
+
+        try:
+            ident = repr(plan)
+        except Exception:  # noqa: BLE001 - a plan with no repr is not cached
+            return None
+        return (
+            hashlib.sha256(ident.encode()).hexdigest()[:24],
+            self.catalog.version,
+            settings_digest(self.config.settings()),
+            self.backend,
+            self.device,
+            self.remote,
+        )
+
+    def _get_plan_cache(self):
+        if self._plan_cache is None:
+            from ballista_tpu_torch.config import BALLISTA_SERVING_PLAN_CACHE_ENTRIES
+            from ballista_tpu_torch.scheduler.serving import PlanCache
+
+            self._plan_cache = PlanCache(self.config.get(BALLISTA_SERVING_PLAN_CACHE_ENTRIES))
+        return self._plan_cache
+
+    def _get_result_cache(self):
+        if self._result_cache is None:
+            from ballista_tpu_torch.config import (
+                BALLISTA_SERVING_RESULT_CACHE_BYTES,
+                BALLISTA_SERVING_RESULT_MAX_BYTES,
+            )
+            from ballista_tpu_torch.scheduler.serving import ResultCache
+
+            self._result_cache = ResultCache(
+                self.config.get(BALLISTA_SERVING_RESULT_CACHE_BYTES),
+                self.config.get(BALLISTA_SERVING_RESULT_MAX_BYTES),
+            )
+        return self._result_cache
 
     def _govern(self, physical):
         """The memory governor over the plan about to run: its mitigations

@@ -258,3 +258,18 @@ def _cancel_quietly(stub, job_id: str) -> None:
         stub.CancelJob(pb.CancelJobParams(job_id=job_id), timeout=5)
     except grpc.RpcError:
         log.debug("cancel of timed-out job %s failed", job_id, exc_info=True)
+
+
+def fetch_trace(ctx, job_id: str) -> list[dict]:
+    """Fetch a job's retained spans from the scheduler's TraceStore
+    (EXPLAIN ANALYZE's data source in remote mode)."""
+    host, port = ctx.remote
+    stub = scheduler_stub(f"{host}:{port}")
+    try:
+        raw = stub.GetTrace(pb.GetTraceParams(job_id=job_id), timeout=10).trace
+    except grpc.RpcError as e:
+        log.warning("GetTrace for job %s failed: %s", job_id, e)
+        return []
+    if not raw:
+        return []
+    return json.loads(raw.decode())

@@ -35,6 +35,15 @@ estimate exceeds the budget is declined. Each stage records its estimate
 (``op.HbmEst.max_bytes``) and, on the card, its measured peak
 (``op.HbmPeak.max_bytes``).
 
+With a trace context (``trace_ctx``), the engine records the JAX engine's
+spans: ``CompiledStage`` per device stage (its rows, ``execute_ms``, the
+stage's estimate ``hbm_est_bytes`` and, on the card, its measured peak
+``hbm_peak_bytes``), ``DeviceExecute`` per device program (``program`` is
+``eager`` for a stage, ``fused`` for a fused exchange or join), and
+``PagedJoin`` per paged join. Each closes after the synchronisation that
+ends its device work, so it holds device time, not enqueue time. There is no
+``DeviceCompile`` span: eager torch compiles nothing.
+
 PyTorch runs eagerly, so a stage program is traced anew on every call: there
 is no compile cache, precompile or hint pipeline. Nodes outside
 ``_supported`` run on the host kernels, as the JAX engine's unsupported
@@ -174,6 +183,12 @@ class TorchEngine(NumpyEngine):
         # the side stream prefetched chunks cross to the card on, made on
         # first use (see _pipelined_chunks)
         self._copy_stream: Optional[torch.cuda.Stream] = None
+        # the running stage's CompiledStage attrs (see _run_stage): its
+        # estimate, measured peak and dictionary-coded columns
+        self._last_hbm_est = 0
+        self._last_hbm_peak = 0
+        self._last_dict_shared = 0
+        self._last_dict_per_batch = 0
         self._apply_dtype_policy()
 
     def _apply_dtype_policy(self) -> None:
@@ -220,7 +235,25 @@ class TorchEngine(NumpyEngine):
     def _timed_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
         t0 = time.time()
         out = self._run_stage(plan, part)
-        self._metric("op.CompiledStage.time_s", time.time() - t0)
+        # the stage ends in its fetch to the host, which waits for the device
+        elapsed = time.time() - t0
+        self._metric("op.CompiledStage.time_s", elapsed)
+        # the JAX span's attrs; an eager stage compiles nothing
+        attrs = {
+            "rows": out.num_rows,
+            "partition": part,
+            "compile_ms": 0.0,
+            "execute_ms": round(elapsed * 1000, 3),
+        }
+        if self._last_hbm_est:
+            attrs["hbm_est_bytes"] = int(self._last_hbm_est)
+        if self._last_hbm_peak:
+            attrs["hbm_peak_bytes"] = int(self._last_hbm_peak)
+        if self._last_dict_shared:
+            attrs["dict_shared_cols"] = self._last_dict_shared
+        if self._last_dict_per_batch:
+            attrs["dict_per_batch_cols"] = self._last_dict_per_batch
+        self._record_span("CompiledStage", t0, elapsed, attrs)
         return out
 
     def _exec_inner(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
@@ -403,6 +436,7 @@ class TorchEngine(NumpyEngine):
         the join (in another row order)."""
         from ballista_tpu_torch.engine.spill import PartitionSpill
 
+        t0 = time.time()
         probe = self._exec(plan.left, part)
         build = self._exec(plan.right, part)
         budget = self._hbm_budget()
@@ -462,9 +496,20 @@ class TorchEngine(NumpyEngine):
             self._in_paged -= 1
             p_spill.close()
             b_spill.close()
+        out = ColumnBatch.concat(pieces) if pieces else ColumnBatch.empty(plan.schema())
+        # each pass ended in its fetch to the host
+        dt = time.time() - t0
         self._metric("op.PagedJoin.count", 1.0)
         self._metric("op.PagedJoin.passes", float(passes))
-        return ColumnBatch.concat(pieces) if pieces else ColumnBatch.empty(plan.schema())
+        self._record_span(
+            "PagedJoin", t0, dt,
+            {
+                "rows": out.num_rows, "partition": part, "passes": passes,
+                "probe_rows": probe.num_rows, "build_rows": build.num_rows,
+                "hbm_budget_bytes": budget,
+            },
+        )
+        return out
 
     def _note_device_peak(self) -> None:
         """Fold the allocator's high-water mark since its last reset into
@@ -478,6 +523,20 @@ class TorchEngine(NumpyEngine):
     # ---- the stage driver ----------------------------------------------------------
     def _run_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
         leaves = self._collect_leaves(plan, part)
+        # this stage's CompiledStage attrs, reset so a host path taken below
+        # (a tiny stage) cannot report the previous stage's
+        self._last_hbm_est = 0
+        self._last_hbm_peak = 0
+        self._last_dict_shared = 0
+        self._last_dict_per_batch = 0
+        for _kind, enc, _extra, _key, _node in leaves.values():
+            dids = enc.dict_ids or [None] * len(enc.col_meta)
+            for m, did in zip(enc.col_meta, dids):
+                if m[2] is not None:
+                    if did:
+                        self._last_dict_shared += 1
+                    else:
+                        self._last_dict_per_batch += 1
         min_rows = self._min_device_rows()
         if min_rows and leaves and sum(e.n_rows for _, e, _, _, _ in leaves.values()) < min_rows:
             # every leaf is already on the host: a stage this small costs
@@ -487,7 +546,8 @@ class TorchEngine(NumpyEngine):
         # the stage's device bytes, estimated from its real leaves: past the
         # budget, its widest partitioned join pages (a safety net under
         # admission, which plans from row estimates)
-        self._metric_max("op.HbmEst.max_bytes", MM.estimate_program_bytes(plan, leaves))
+        self._last_hbm_est = MM.estimate_program_bytes(plan, leaves)
+        self._metric_max("op.HbmEst.max_bytes", self._last_hbm_est)
         est = MM.estimate_eager_program_bytes(plan, leaves)
         self._metric_max("op.HbmEstEager.max_bytes", est)
         budget = self._hbm_budget()
@@ -516,12 +576,13 @@ class TorchEngine(NumpyEngine):
             # arguments (each tensor once) plus what the program allocated
             resident = sum(t.numel() * t.element_size()
                            for t in {t.data_ptr(): t for t in tensors}.values())
-            self._metric_max("op.HbmPeak.max_bytes",
-                             MM.measured_program_bytes(self.device, base, resident))
+            self._last_hbm_peak = MM.measured_program_bytes(self.device, base, resident)
+            self._metric_max("op.HbmPeak.max_bytes", self._last_hbm_peak)
         in_rows = float(sum(enc.n_rows for _, enc, _, _, _ in leaves.values()))
         self._metric("op.DeviceExecute.time_s", dt)
         self._metric("op.DeviceExecute.count", 1.0)
         self._metric("op.DeviceExecute.rows", in_rows)
+        self._record_span("DeviceExecute", t0, dt, {"rows": in_rows, "program": "eager"})
 
         out_db = KT.device_batch_from_outputs(holder["meta"], list(out), 0)
         return self._fetch(out_db)

@@ -4,9 +4,9 @@ Reference analog: ``ballista-scheduler`` (``scheduler/src/bin/main.rs`` +
 ``scheduler_config_spec.toml``). Env prefix BALLISTA_SCHEDULER_* mirrors the
 reference's configure_me env support.
 
-The REST API and UI (``--api-port``) and the durable cluster backends are
-not ported yet: asking for the API exits with status 2, and the cluster state
-is the in-memory one.
+``--api-port N`` serves the REST API and web UI (``scheduler/api.py``) on
+port N. The durable cluster backends are not ported yet: the cluster state is
+the in-memory one.
 """
 from __future__ import annotations
 
@@ -14,7 +14,6 @@ import argparse
 import logging
 import os
 import signal
-import sys
 import time
 
 from ballista_tpu_torch.config import SchedulerConfig
@@ -32,8 +31,7 @@ def main() -> None:
                    default=env("BALLISTA_SCHEDULER_TASK_DISTRIBUTION", "bias"))
     p.add_argument("--executor-timeout-seconds", type=float, default=180.0)
     p.add_argument("--api-port", type=int, default=int(env("BALLISTA_SCHEDULER_API_PORT", "0")),
-                   help="REST API port (0 = disabled; any other value is "
-                        "refused until the REST API is ported)")
+                   help="REST API and web UI port (0 = disabled)")
     p.add_argument("--expiry-interval-seconds", type=float,
                    default=float(env("BALLISTA_SCHEDULER_EXPIRY_INTERVAL", "15")))
     p.add_argument("--plugin-dir", default=env("BALLISTA_SCHEDULER_PLUGIN_DIR", None),
@@ -70,11 +68,6 @@ def main() -> None:
             if hasattr(args, attr):
                 setattr(args, attr, v)
 
-    if args.api_port:
-        print("ballista-scheduler: the REST API (--api-port) is not ported to "
-              "ballista_tpu_torch yet (scheduler/api.py, ui.py, graph_dot.py, "
-              "obs/perfetto.py)", file=sys.stderr, flush=True)
-        sys.exit(2)
     logging.basicConfig(
         level=args.log_level,
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
@@ -100,11 +93,21 @@ def main() -> None:
     port = server.start(args.bind_port)
     print(f"ballista-tpu-torch scheduler listening on {args.bind_host}:{port}", flush=True)
 
+    api = None
+    if args.api_port:
+        from ballista_tpu_torch.scheduler.api import start_api_server
+
+        api = start_api_server(server, args.bind_host, args.api_port)
+        print(f"ballista-tpu-torch REST API on {args.bind_host}:{api.server_address[1]}",
+              flush=True)
+
     stop = [False]
     signal.signal(signal.SIGINT, lambda *a: stop.__setitem__(0, True))
     signal.signal(signal.SIGTERM, lambda *a: stop.__setitem__(0, True))
     while not stop[0]:
         time.sleep(0.2)
+    if api is not None:
+        api.shutdown()
     server.stop()
 
 

@@ -12,9 +12,10 @@ scheduler_server/{mod.rs,grpc.rs,query_stage_scheduler.rs}``):
 * dead-executor expiry loop every 15s, 180s timeout (mod.rs:215-272)
 
 The port's copy keeps the in-memory cluster state only: the durable
-``kv``/``grpc-kv``/``etcd`` backends, the KEDA external scaler and the
-elastic scale controller (drains; a session's speculation factor still
-applies) wait for their own slices, and asking for them raises.
+``kv``/``grpc-kv``/``etcd`` backends and the KEDA external scaler wait for
+their own slices, and asking for them raises. The elastic scale controller
+(``scheduler/scale.py``) is ported: it is ticked from the expiry loop, and
+``drain_executor`` starts a drain-safe scale-down of one executor.
 Mesh-group gang scheduling is kept as written; no torch executor
 registers a mesh group yet, so it never fires.
 """
@@ -208,14 +209,12 @@ class SchedulerServer:
                 else None
             ),
         )
-        # straggler speculation's scheduler-wide default (a session's
-        # ballista.scale.speculation_factor wins); the rest of the scale
-        # settings belong to the scale controller, which is not ported
-        from ballista_tpu_torch.config import BALLISTA_SCALE_SPECULATION_FACTOR
+        # elastic executors (docs/elasticity.md): backlog signal + scale
+        # controller (passive unless ballista.scale.max_executors > 0),
+        # ticked from the expiry loop; the drain state machine runs in it
+        from ballista_tpu_torch.scheduler.scale import ScaleController
 
-        self.speculation_factor = BallistaConfig(
-            dict(self.config.scale_settings or {})
-        ).get(BALLISTA_SCALE_SPECULATION_FACTOR)
+        self.scale = ScaleController(self, self.config.scale_settings)
         # jobs cancelled between dispatch and submit_job (client timeout on a
         # job still planning); checked under _cancel_lock so a cancel can
         # never race the planner's submit into an orphaned running job
@@ -802,7 +801,7 @@ class SchedulerServer:
             graph.speculation_factor = (
                 config.get(BALLISTA_SCALE_SPECULATION_FACTOR)
                 if BALLISTA_SCALE_SPECULATION_FACTOR in settings
-                else self.speculation_factor
+                else self.scale.speculation_factor
             )
             if entry is None:
                 # analyzer pass before anything is admitted (reference:
@@ -1544,12 +1543,46 @@ class SchedulerServer:
 
     # ---- elastic executors (docs/elasticity.md) ---------------------------------------
     def drain_executor(self, executor_id: str, grace_s: Optional[float] = None) -> bool:
-        """A drain-safe scale-down needs the scale controller's drain state
-        machine (``scheduler/scale.py``), which is not ported yet."""
-        raise BallistaError(
-            "executor drains are not ported to ballista_tpu_torch yet "
-            "(scheduler/scale.py)"
+        """Begin a voluntary, drain-safe scale-down of one executor: ACTIVE ->
+        TERMINATING (no new tasks), then the scale controller's drain state
+        machine waits out running tasks + the shuffle-serve grace window
+        before deregistering. Exposed to the ScaleController and the REST API
+        (PATCH /api/scale/drain/{id})."""
+        ok = self.cluster.begin_drain(
+            executor_id,
+            self.scale.drain_grace_s if grace_s is None else grace_s,
         )
+        if ok:
+            self.scale.drains_started_total += 1
+            # no NEW job may adopt cached pieces off a departing executor;
+            # in-flight readers are covered by the spliced graph inputs the
+            # drain's executor_output_referenced check already sees
+            self.exchange_cache.invalidate_executor(executor_id)
+            log.info("drain initiated for executor %s", executor_id)
+        return ok
+
+    def stop_drained_executor(self, executor_id: str) -> None:
+        """Finish a drain. Push-mode executors get a graceful StopExecutor
+        (their own drain is already empty; ExecutorStopped deregisters) and
+        the registry entry is removed — removal runs executor_lost, which is
+        a no-op when the drain waited out every reference, and a clean
+        lineage re-run (never a job failure) when the grace deadline forced
+        it. PULL-mode executors with no local stopper have no control
+        channel: the entry stays TERMINATING (polls get no tasks, shuffle
+        still serves) until the process owner stops it — its
+        ExecutorStopped, or missed heartbeats on the terminating grace,
+        deregister it then."""
+        e = self.cluster.get(executor_id)
+        if e is None:
+            return
+        if self.config.scheduling_policy == "push":
+            try:
+                self._stub(e).StopExecutor(
+                    pb.StopExecutorParams(force=False), timeout=5
+                )
+            except Exception:  # noqa: BLE001 - best-effort; expiry reaps it
+                log.debug("StopExecutor to %s failed", executor_id, exc_info=True)
+            self._remove_executor(executor_id)
 
     # ---- serving helpers (docs/serving.md) --------------------------------------------
     def _set_override(self, job_id: str, state: str, err: str = "") -> None:
@@ -1989,6 +2022,12 @@ class SchedulerServer:
             ):
                 log.warning("executor %s expired; removing", e.executor_id)
                 self._remove_executor(e.executor_id)
+            try:
+                # elastic controller tick: progress drains; scale decisions
+                # when enabled (hysteresis/cooldown inside)
+                self.scale.tick()
+            except Exception:  # noqa: BLE001 - scaling must not kill the loop
+                log.exception("scale controller tick failed")
             try:
                 # exchange-cache TTL sweep: expiry releases the producer
                 # jobs' deferred shuffle-dir cleanups via the unpin callback

@@ -103,7 +103,37 @@ Phases, each of which passes or ends the run with a non-zero exit:
              once each, rows exact, device stages as above, then SIGTERM:
              both exit 0 and their work dirs are gone. Every run prints its
              wall, stages, tasks and shuffle bytes.
-9. timing  — grouped_sums at one column (2^21 rows, k = 12, int64), at
+9. surfaces — inspecting and operating a job (``run_surfaces_phase``):
+             (a) standalone EXPLAIN ANALYZE of q1, q3 and q5 on ``cuda``,
+             cold (after ``clear_caches()``) and warm, beside plain warm
+             runs in turns: the rendered plan carries the CompiledStage and
+             DeviceExecute rollups (a measured stage peak on the card), one
+             DeviceExecute span per ``op.DeviceExecute.count`` summing to
+             ``op.DeviceExecute.time_s`` within 1 ms a span, zero host
+             fallbacks, warm grouped_sums launches equal to the plain run's,
+             the plain rows exact; (b) EXPLAIN ANALYZE of q3 on the paged
+             path: PagedJoin spans whose passes sum to
+             ``op.PagedJoin.passes`` (>= 2), then its rows exact; (c) EXPLAIN
+             VERIFY of q1-q22 under the detected budget: no error, no PV007
+             (every governor verdict fits); (d) a scheduler with its REST API
+             (``start_api_server``) and two torch executors on ``cuda``: q3
+             exact through ``BallistaContext.remote``, every GET route
+             answers, ``/api/executors`` lists both with the card's name,
+             ``/api/dot`` is a digraph, ``/api/trace`` holds client,
+             scheduler and executor events and one DeviceExecute event per
+             device stage the job graph counts, ``/api/metrics`` has
+             ``scale_`` and ``trace_store_`` lines, ``/ui`` is HTML, and
+             EXPLAIN ANALYZE over the remote context renders the executors'
+             spans; (e) on a fresh cluster, one task of q3's first stage
+             slowed by a session fault (``DRAIN_FAULT``) and its executor
+             drained by ``PATCH /api/scale/drain/{id}``: q3 exact, the
+             executor ``terminating`` and then removed, one drain started
+             and completed in ``/api/metrics``, q5 exact on the survivor
+             alone with no host fallback; (f) ``python -m
+             ballista_tpu_torch.client.cli`` in a subprocess on ``cuda``
+             runs q6 from a ``-f`` script, rows exact. It prints every wall,
+             the span totals, the drain's time and its own seconds.
+10. timing — grouped_sums at one column (2^21 rows, k = 12, int64), at
              the largest and smallest stages of q1's warm run (the fused
              program's partial aggregate and final merge), at the largest
              stage of its unfused run, and at a
@@ -1397,6 +1427,17 @@ def job_summary(graph) -> dict:
             "budget": graph.memory_report.budget_bytes if graph.memory_report else 0}
 
 
+def span_device(spans: list) -> dict:
+    """A job's device time from its trace: the ``DeviceExecute`` spans (one
+    per device program, each closed after the device finished) and the
+    largest stage peak the ``CompiledStage`` spans measured."""
+    dev = [s for s in spans if s["name"] == "DeviceExecute"]
+    peaks = [int(s["attrs"].get("hbm_peak_bytes", 0) or 0) for s in spans
+             if s["name"] == "CompiledStage"]
+    return {"programs": len(dev), "device_s": sum(s["dur_us"] for s in dev) / 1e6,
+            "peak_bytes": max(peaks, default=0)}
+
+
 def check_job(label: str, job: dict) -> None:
     """Zero host fallbacks and device execution in every aggregate or join
     stage above a shuffle read."""
@@ -1479,6 +1520,11 @@ def run_distributed_phase(device: str, tables: dict, tag: str, refs: tuple) -> d
                     wall = time.time() - t0
                 job = job_summary(cluster.scheduler.tasks.get_job(ctx.last_job_id))
                 report_job(f"{q} {run}", wall, job, rec["launches"], tag)
+                dev = span_device(cluster.scheduler.traces.get(ctx.last_job_id))
+                print(f"distributed {q} {run}: the trace's {dev['programs']} DeviceExecute "
+                      f"spans {dev['device_s']:.4f} s = {100 * dev['device_s'] / wall:.2f}% of "
+                      f"the wall; largest stage peak {dev['peak_bytes']} bytes [{tag}]",
+                      flush=True)
                 # stages adopted from the exchange cache carry the rounding
                 # of the cold run that wrote their pieces
                 presums = rec["presums"] + (
@@ -1554,6 +1600,360 @@ def run_distributed_phase(device: str, tables: dict, tag: str, refs: tuple) -> d
         raise AssertionError(f"executor work dirs left behind: {left}")
     print(f"2 executor processes stopped by SIGTERM, exit codes {codes}, work dirs removed",
           flush=True)
+    return out
+
+
+# ---- 9. surfaces -------------------------------------------------------------------
+SURFACE_QUERIES = ("q1", "q3", "q5")
+# one task of q3's first stage slowed, on the executor the drain then takes
+DRAIN_FAULT = "task.execute:slow@delay=2.0:stage_id=1:partition=0"
+API_ROUTES = ("/", "/ui", "/api/state", "/api/executors", "/api/jobs", "/api/job/{job}",
+              "/api/stages/{job}", "/api/dot/{job}", "/api/dot_stage/{job}/1",
+              "/api/trace/{job}", "/api/trace_spans/{job}", "/api/scale", "/api/serving",
+              "/api/metrics", "/api/timeseries", "/api/profile?seconds=0.2")
+
+
+def explain_analyze(ctx, sql: str) -> dict:
+    """``EXPLAIN ANALYZE`` of ``sql`` inside ``counting()``: the rendered
+    plan, the query's spans and metrics, its wall."""
+    with counting() as rec:
+        t0 = time.time()
+        text = ctx.sql("EXPLAIN ANALYZE " + sql).collect().column("plan")[0].as_py()
+        wall = time.time() - t0
+    return dict(rec, text=text, wall=wall, spans=list(ctx.last_trace_spans),
+                metrics=dict(ctx.last_engine_metrics))
+
+
+def check_spans(label: str, r: dict, on_card: bool, tag: str) -> None:
+    """An EXPLAIN ANALYZE run's spans against its metrics: one
+    ``DeviceExecute`` span per device program (``op.DeviceExecute.count``),
+    their durations summing to ``op.DeviceExecute.time_s`` within 1 ms per
+    span, the ``CompiledStage`` and ``DeviceExecute`` rollups in the
+    rendered plan (on the card with a measured stage peak), no host
+    fallback."""
+    m, spans, text = r["metrics"], r["spans"], r["text"]
+    dev = [s for s in spans if s["name"] == "DeviceExecute"]
+    stages = [s for s in spans if s["name"] == "CompiledStage"]
+    n = m.get("op.DeviceExecute.count", 0.0)
+    if len(dev) != n or n < 1:
+        raise AssertionError(f"surfaces {label}: {len(dev)} DeviceExecute spans, "
+                             f"op.DeviceExecute.count {n:g}")
+    span_s = sum(s["dur_us"] for s in dev) / 1e6
+    if abs(span_s - m["op.DeviceExecute.time_s"]) > 1e-3 * len(dev):
+        raise AssertionError(f"surfaces {label}: DeviceExecute spans {span_s:.6f} s, "
+                             f"op.DeviceExecute.time_s {m['op.DeviceExecute.time_s']:.6f} s")
+    hbm = next((ln for ln in text.splitlines() if ln.startswith("hbm: ")), "")
+    if "device: compile_ms=0.000 execute_ms=" not in text or not stages or not hbm:
+        raise AssertionError(f"surfaces {label}: no CompiledStage/DeviceExecute rollup in\n{text}")
+    if on_card and hbm.endswith("peak_bytes=0"):
+        raise AssertionError(f"surfaces {label}: no stage peak measured: {hbm}")
+    if m.get("op.HostFallback.count", 0.0):
+        raise AssertionError(f"surfaces {label}: {m['op.HostFallback.count']:g} host fallbacks")
+    # stages nest (a stage's leaves may run stages), so their sum may pass the wall
+    stage_s = sum(s["dur_us"] for s in stages) / 1e6
+    print(f"surfaces {label}: EXPLAIN ANALYZE wall {r['wall']:.3f} s, {len(stages)} "
+          f"CompiledStage spans ({stage_s:.6f} s, nested), {len(dev)} DeviceExecute spans "
+          f"({span_s:.6f} s; op.DeviceExecute.time_s {m['op.DeviceExecute.time_s']:.6f} s), "
+          f"{hbm}, grouped_sums launches {r['launches']} [{tag}]", flush=True)
+
+
+def _http(port: int, route: str, method: str = "GET") -> tuple:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}", method=method)
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status, resp.headers["Content-Type"], resp.read().decode()
+
+
+def _json(port: int, route: str, method: str = "GET"):
+    return json.loads(_http(port, route, method)[2])
+
+
+def _prom(text: str, name: str) -> float:
+    return next(float(ln.split()[-1]) for ln in text.splitlines() if ln.startswith(name + " "))
+
+
+def _slow_task_holder(sched) -> str:
+    """The executor running partition 0 of stage 1 of an active job."""
+    with sched.tasks._lock:
+        for g in sched.tasks.active_jobs():
+            s = g.stages.get(1)
+            t = s.task_infos[0] if s is not None and s.task_infos else None
+            if t is not None and t.status == "running":
+                return t.executor_id
+    return ""
+
+
+def _api_cluster(device: str, work: str):
+    """A scheduler whose expiry loop (and with it the scale controller)
+    ticks every 0.25 s, its REST API, and two torch executors in this
+    process on ``device``."""
+    from ballista_tpu_torch.client.standalone import start_standalone_cluster
+    from ballista_tpu_torch.config import SchedulerConfig
+    from ballista_tpu_torch.scheduler.api import start_api_server
+
+    shutil.rmtree(work, ignore_errors=True)
+    cluster = start_standalone_cluster(
+        n_executors=2, task_slots=2, device=device, work_dir=work,
+        scheduler_config=SchedulerConfig(expire_dead_executors_interval_seconds=0.25))
+    return cluster, start_api_server(cluster.scheduler, "127.0.0.1", 0)
+
+
+def run_surfaces_phase(device: str, tables: dict, tag: str, refs: tuple) -> dict:
+    """The surfaces phase: (a) standalone EXPLAIN ANALYZE of q1, q3 and q5,
+    cold and warm, against a plain warm run; (b) EXPLAIN ANALYZE of q3 with
+    its joins paged; (c) EXPLAIN VERIFY of q1-q22 under the detected budget;
+    (d) every REST API route over a cluster of two torch executors, and
+    EXPLAIN ANALYZE over the remote context; (e) a drain mid-job through
+    ``PATCH /api/scale/drain``; (f) the CLI in a subprocess. Returns
+    {("surfaces", query, run): the run's record}."""
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import torch_engine as TE
+
+    exact, want = refs
+    on_card = device.startswith("cuda")
+    out = {}
+    t_phase = time.time()
+
+    # (a) standalone EXPLAIN ANALYZE, cold and warm, beside a plain warm run
+    ctx = BallistaContext.standalone(device=device)
+    for name, location in tables.items():
+        ctx.register_parquet(name, location)
+    for q in SURFACE_QUERIES:
+        sql, expect = want[q]
+        TE.clear_caches()
+        cold = explain_analyze(ctx, sql)
+        check_spans(f"{q} cold", cold, on_card, tag)
+        # warm, in turns: plain, EXPLAIN ANALYZE, EXPLAIN ANALYZE, plain (a
+        # plain standalone run records the same spans; EXPLAIN ANALYZE adds
+        # the render)
+        plain = run_counted(ctx, sql)
+        check_result(plain["table"], expect, exact[q], q, plain["presums"])
+        warm = explain_analyze(ctx, sql)
+        check_spans(f"{q} warm", warm, on_card, tag)
+        walls = [warm["wall"], explain_analyze(ctx, sql)["wall"]]
+        plain_walls = [plain["wall"], run_counted(ctx, sql)["wall"]]
+        if warm["launches"] != plain["launches"]:
+            raise AssertionError(f"surfaces {q} warm: EXPLAIN ANALYZE made {warm['launches']} "
+                                 f"grouped_sums launches, the plain run {plain['launches']}")
+        print(f"surfaces {q}: warm EXPLAIN ANALYZE walls {walls[0]:.4f}, {walls[1]:.4f} s, "
+              f"plain warm walls {plain_walls[0]:.4f}, {plain_walls[1]:.4f} s "
+              f"({sum(walls) / sum(plain_walls):.3f}x); grouped_sums launches "
+              f"{warm['launches']} and {plain['launches']} [{tag}]", flush=True)
+        out[("surfaces", q, "cold")] = cold
+        out[("surfaces", q, "warm")] = warm
+
+    # (b) EXPLAIN ANALYZE of q3, its joins partitioned, unfused and paged
+    settings = next(s for path, s, _, _ in PATHS if path == "paged")
+    pctx = BallistaContext.standalone(BallistaConfig(dict(settings)), device=device)
+    for name, location in tables.items():
+        pctx.register_parquet(name, location)
+    sql, expect = want["q3"]
+    pctx.config.set(BUDGET_KEY, str(paged_budget(pctx, sql)))
+    paged = explain_analyze(pctx, sql)
+    m = paged["metrics"]
+    pspans = [s for s in paged["spans"] if s["name"] == "PagedJoin"]
+    passes = sum(s["attrs"]["passes"] for s in pspans)
+    if not (len(pspans) == m.get("op.PagedJoin.count", 0.0) >= 1
+            and passes == m.get("op.PagedJoin.passes", 0.0) >= 2):
+        raise AssertionError(f"surfaces paged q3: {len(pspans)} PagedJoin spans of {passes} "
+                             f"passes, metrics {m.get('op.PagedJoin.count', 0.0):g} in "
+                             f"{m.get('op.PagedJoin.passes', 0.0):g}")
+    check_spans("paged q3", paged, on_card, tag)
+    rows = run_counted(pctx, sql)
+    check_result(rows["table"], expect, exact["q3"], "q3", rows["presums"])
+    print(f"surfaces paged q3: {len(pspans)} PagedJoin spans, {passes} passes, "
+          f"{sum(s['dur_us'] for s in pspans) / 1e6:.3f} s in them; the plain run's rows "
+          f"exact in {rows['wall']:.3f} s [{tag}]", flush=True)
+    out[("surfaces", "q3", "paged")] = paged
+
+    # (c) EXPLAIN VERIFY of all 22 queries under the budget detected on the card
+    t0 = time.time()
+    verdicts = {}
+    for i in range(1, 23):
+        with open(os.path.join(REPO, "benchmarks", "queries", f"q{i}.sql")) as f:
+            found = ctx.sql("EXPLAIN VERIFY " + f.read()).collect().to_pydict()
+        bad = [r for r in zip(found["severity"], found["rule"], found["message"])
+               if r[0] == "error" or r[1] == "PV007"]
+        if bad:
+            raise AssertionError(f"surfaces EXPLAIN VERIFY q{i}: {bad}")
+        verdicts[f"q{i}"] = sorted(set(found["rule"]))
+    print(f"surfaces EXPLAIN VERIFY q1-q22: no error, every governor verdict fits, in "
+          f"{time.time() - t0:.3f} s; rules found {verdicts} [{tag}]", flush=True)
+
+    # (d) the REST API over a cluster of two torch executors
+    cluster, api = _api_cluster(device, os.path.join(DATA_DIR, "surfaces_api"))
+    port = api.server_address[1]
+    try:
+        rctx = BallistaContext.remote("127.0.0.1", cluster.scheduler_port)
+        for name, location in tables.items():
+            rctx.register_parquet(name, location)
+        sql, expect = want["q3"]
+        TE.clear_caches()
+        with counting() as rec:
+            t0 = time.time()
+            table = rctx.sql(sql).collect()
+            wall = time.time() - t0
+        check_result(table, expect, exact["q3"], "q3", rec["presums"])
+        job = rctx.last_job_id
+        graph = cluster.scheduler.tasks.get_job(job)
+        t0 = time.time()
+        got = {r: _http(port, r.format(job=job)) for r in API_ROUTES}
+        routes_s = time.time() - t0
+        failed = {r: g[0] for r, g in got.items() if g[0] != 200}
+        if failed:
+            raise AssertionError(f"surfaces api: routes failed {failed}")
+        kind = torch.cuda.get_device_name(0) if on_card else "cpu"
+        execs = json.loads(got["/api/executors"][2])
+        if len(execs) != 2 or {e["device_kind"] for e in execs} != {kind}:
+            raise AssertionError(f"surfaces api: executors {execs}")
+        if not got["/api/dot/{job}"][2].startswith("digraph"):
+            raise AssertionError("surfaces api: /api/dot is no digraph")
+        events = [e for e in json.loads(got["/api/trace/{job}"][2])["traceEvents"]
+                  if e["ph"] == "X"]
+        cats = {e["cat"] for e in events}
+        dev_events = sum(1 for e in events if e["name"] == "DeviceExecute")
+        dev_count = sum(s.stage_metrics.get("op.DeviceExecute.count", 0.0)
+                        for s in graph.stages.values())
+        if not {"client", "scheduler", "executor"} <= cats or dev_events != dev_count \
+                or dev_count < 1:
+            raise AssertionError(f"surfaces api: trace services {cats}, {dev_events} "
+                                 f"DeviceExecute events, the stages count {dev_count:g}")
+        metrics = got["/api/metrics"][2]
+        if "\nscale_" not in metrics or "\ntrace_store_" not in metrics:
+            raise AssertionError("surfaces api: no scale_ or trace_store_ lines in /api/metrics")
+        if "<html" not in got["/ui"][2]:
+            raise AssertionError("surfaces api: /ui is no HTML page")
+        remote = explain_analyze(rctx, sql)
+        spans_line = remote["text"].splitlines()[-1]
+        if f"job_id: {rctx.last_job_id}" not in remote["text"] or "executor=" not in spans_line \
+                or "engine=" not in spans_line:
+            raise AssertionError(f"surfaces api: remote EXPLAIN ANALYZE\n{remote['text']}")
+        dev = span_device(cluster.scheduler.traces.get(job))
+        print(f"surfaces api: q3's trace: {dev['programs']} DeviceExecute spans "
+              f"{dev['device_s']:.4f} s = {100 * dev['device_s'] / wall:.2f}% of the wall; "
+              f"largest stage peak {dev['peak_bytes']} bytes [{tag}]", flush=True)
+        print(f"surfaces api: q3 through 2 executors on {device} in {wall:.3f} s, rows exact; "
+              f"{len(API_ROUTES)} routes answered in {routes_s:.3f} s; /api/trace holds "
+              f"{len(events)} events of {sorted(cats)}, {dev_events} DeviceExecute (the stages "
+              f"count {dev_count:g}); remote EXPLAIN ANALYZE wall {remote['wall']:.3f} s, "
+              f"{spans_line} [{tag}]", flush=True)
+    finally:
+        api.shutdown()
+        cluster.stop()
+
+    # (e) a drain mid-job, on a fresh cluster: no earlier job's result
+    # pieces hold the drain for the result-serve window
+    import threading
+
+    cluster, api = _api_cluster(device, os.path.join(DATA_DIR, "surfaces_drain"))
+    port = api.server_address[1]
+    sched = cluster.scheduler
+    try:
+        for p in cluster.executors:
+            sched.scale.register_local(p.executor_id, p.stop)
+        slowed = BallistaContext.remote("127.0.0.1", cluster.scheduler_port, BallistaConfig({
+            "ballista.faults.schedule": DRAIN_FAULT,
+            # an exchange adopted from the cache would skip the slowed stage
+            "ballista.serving.exchange_cache": "false"}))
+        plain = BallistaContext.remote("127.0.0.1", cluster.scheduler_port)
+        for c in (slowed, plain):
+            for name, location in tables.items():
+                c.register_parquet(name, location)
+        sql, expect = want["q3"]
+        result, errors = {}, []
+
+        def submit():
+            try:
+                t1 = time.time()
+                result["table"] = slowed.sql(sql).collect()
+                result["wall"] = time.time() - t1
+            except Exception as e:  # noqa: BLE001 - re-raised on the main thread
+                errors.append(e)
+
+        with counting() as rec:
+            job = threading.Thread(target=submit, daemon=True)
+            job.start()
+            deadline = time.time() + 120
+            victim = ""
+            while not victim and time.time() < deadline and job.is_alive():
+                victim = _slow_task_holder(sched)
+                time.sleep(0.02)
+            if not victim:
+                raise AssertionError("surfaces drain: the slowed task never ran")
+            t_patch = time.time()
+            if _json(port, f"/api/scale/drain/{victim}", "PATCH") != {"draining": True}:
+                raise AssertionError(f"surfaces drain: PATCH refused for {victim}")
+            statuses = []
+            while time.time() < t_patch + 120:
+                now = {e["executor_id"]: e["status"] for e in _json(port, "/api/executors")}
+                if victim not in now:
+                    break
+                statuses.append(now[victim])
+                time.sleep(0.05)
+            removed_s = time.time() - t_patch
+            job.join(timeout=120)
+        if errors:
+            raise errors[0]
+        if job.is_alive() or "table" not in result:
+            raise AssertionError("surfaces drain: the drained job never finished")
+        check_result(result["table"], expect, exact["q3"], "q3", rec["presums"])
+        left = {e["executor_id"] for e in _json(port, "/api/executors")}
+        if victim in left or "terminating" not in statuses:
+            raise AssertionError(f"surfaces drain: {victim} went {sorted(set(statuses))}, "
+                                 f"executors left {left}")
+        metrics = _http(port, "/api/metrics")[2]
+        started, completed = (_prom(metrics, "scale_drains_started_total"),
+                              _prom(metrics, "scale_drains_completed_total"))
+        if (started, completed) != (1.0, 1.0):
+            raise AssertionError(f"surfaces drain: drains started {started:g}, completed "
+                                 f"{completed:g}")
+        sql5, expect5 = want["q5"]
+        with counting() as rec5:
+            t0 = time.time()
+            table5 = plain.sql(sql5).collect()
+            wall5 = time.time() - t0
+        check_result(table5, expect5, exact["q5"], "q5", rec5["presums"])
+        graph5 = sched.tasks.get_job(plain.last_job_id)
+        check_job("surfaces q5 after the drain", job_summary(graph5))
+        ran_on = {t.executor_id for s in graph5.stages.values() for t in s.task_infos
+                  if t is not None}
+        if victim in ran_on:
+            raise AssertionError(f"surfaces drain: q5 ran tasks on the drained {victim}")
+        print(f"surfaces drain: {victim} drained mid-job; PATCH to removal {removed_s:.3f} s "
+              f"(statuses seen {sorted(set(statuses))}); the slowed q3 took "
+              f"{result['wall']:.3f} s, rows exact; drains started {started:g}, completed "
+              f"{completed:g}; q5 on the survivor {sorted(ran_on)} in {wall5:.3f} s, rows "
+              f"exact, no host fallback [{tag}]", flush=True)
+    finally:
+        api.shutdown()
+        cluster.stop()
+
+    # (f) the CLI in a subprocess: a -f script registering lineitem and running q6
+    sql, expect = want["q6"]
+    script = os.path.join(DATA_DIR, "surfaces_q6.sql")
+    with open(script, "w") as f:
+        f.write(f"CREATE EXTERNAL TABLE lineitem STORED AS PARQUET LOCATION "
+                f"'{tables['lineitem']}';\n{sql.strip().rstrip(';')}\n")
+    cmd = [sys.executable, "-m", "ballista_tpu_torch.client.cli", "--format", "csv", "-f", script]
+    if not on_card:
+        cmd += ["--device", device]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    cli_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"surfaces cli: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    import io
+
+    import pyarrow.csv as pacsv
+
+    # the last statement's CSV closes the output: its header and one row
+    table = pacsv.read_csv(io.BytesIO("\n".join(proc.stdout.strip().splitlines()[-2:]).encode()))
+    check_result(table, expect, exact["q6"], "q6", [])
+    print(f"surfaces cli: python -m ballista_tpu_torch.client.cli on {device} ran q6 from a -f "
+          f"script in {cli_s:.3f} s (process start included), rows exact [{tag}]", flush=True)
+    print(f"surfaces phase {time.time() - t_phase:.1f} s [{tag}]", flush=True)
     return out
 
 
@@ -1728,8 +2128,8 @@ def report_runs(results: dict, prof: dict, card: str) -> None:
 
 
 def rehearse(data_dir: str, parts: int = 2) -> None:
-    """The hash, slice, windows, staged and distributed phases on the CPU
-    over the TPC-H tables under
+    """The hash, slice, windows, staged, distributed and surfaces phases on
+    the CPU over the TPC-H tables under
     ``data_dir`` (the tests' SF 0.01, ``parts`` files per large table:
     ``tests/.data/torch_tpch_sf001``):
 
@@ -1755,6 +2155,7 @@ def rehearse(data_dir: str, parts: int = 2) -> None:
         results.update(run_windows("cpu", tables, "cpu")[0])
         results.update(run_staged_phase("cpu", tables, "cpu", refs, small=True)[0])
         results.update(run_distributed_phase("cpu", tables, "cpu", refs))
+        results.update(run_surfaces_phase("cpu", tables, "cpu", refs))
     finally:
         GS.grouped_sums_multi = real
     report_runs(results, {}, "cpu")
@@ -1820,6 +2221,9 @@ def main() -> int:
     t0 = time.time()
     results.update(run_distributed_phase("cuda", tables, card, refs))
     print(f"distributed phase {time.time() - t0:.1f} s [{card}]", flush=True)
+
+    phase("surfaces")
+    results.update(run_surfaces_phase("cuda", tables, card, refs))
     report_runs(results, prof, card)
     if ESTIMATE_MISSES:
         for miss in ESTIMATE_MISSES:

@@ -70,6 +70,11 @@ def test_no_jax_or_reference_imports_and_all_port_imports_resolve():
     walked = {os.path.relpath(os.path.dirname(p), PORT) for p in _port_sources()}
     assert {"obs", "analysis", "shuffle", "scheduler", "utils", "engine",
             "executor", "client", "proto"} <= walked
+    # and so are the inspection and operation surfaces
+    files = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {"obs/explain.py", "obs/perfetto.py", "scheduler/api.py", "scheduler/ui.py",
+            "scheduler/graph_dot.py", "scheduler/scale.py", "client/cli.py",
+            "client/functions.py", "pyballista.py"} <= files
     bad = []
     for path in _port_sources():
         rel = os.path.relpath(path, REPO)
@@ -192,6 +197,17 @@ try:
     print("REMOTE", len(graph.stages))
 finally:
     cluster.stop()
+
+# EXPLAIN VERIFY and ANALYZE, and the inspection and operation surfaces
+verified = ctx.sql("EXPLAIN VERIFY " + q1).collect().to_pydict()
+assert "error" not in verified["severity"], verified
+text = ctx.sql("EXPLAIN ANALYZE " + q1).collect().to_pydict()["plan"][0]
+assert "device: compile_ms=0.000 execute_ms=" in text, text
+import ballista_tpu_torch.client.cli, ballista_tpu_torch.client.functions
+import ballista_tpu_torch.pyballista, ballista_tpu_torch.scheduler.api
+import ballista_tpu_torch.scheduler.graph_dot, ballista_tpu_torch.scheduler.scale
+import ballista_tpu_torch.scheduler.ui, ballista_tpu_torch.obs.perfetto
+print("EXPLAIN", len(ctx.last_trace_spans))
 assert not any(k == "jax" or k.startswith(("jax.", "ballista_tpu."))
                for k, v in sys.modules.items() if v is not None)
 """
@@ -199,9 +215,10 @@ assert not any(k == "jax" or k.startswith(("jax.", "ballista_tpu."))
 
 def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     """q1, a device window, a paged q3 join, q1 and a streamed final
-    aggregate stage by stage through shuffle files, and q1 through the
-    port's scheduler and two executors by the remote client, with JAX and
-    the JAX package unimportable."""
+    aggregate stage by stage through shuffle files, q1 through the port's
+    scheduler and two executors by the remote client, EXPLAIN VERIFY and
+    ANALYZE of q1, and the REST API, scale controller, CLI and shim
+    modules, with JAX and the JAX package unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", _Q1_BLOCKED.format(repo=REPO, data=torch_tpch_dir)],
@@ -209,7 +226,7 @@ def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ROWS 4" in proc.stdout and "PAGED" in proc.stdout and "STAGED" in proc.stdout
-    assert "REMOTE" in proc.stdout
+    assert "REMOTE" in proc.stdout and "EXPLAIN" in proc.stdout
 
 
 def test_standalone_defaults_to_cuda_and_raises_without_it():
@@ -247,12 +264,36 @@ def test_executor_process_without_cuda_exits_with_a_reason():
     assert "CUDA is not available" in proc.stderr
 
 
-def test_scheduler_process_refuses_the_rest_api():
-    """The REST API is not ported: asking for it exits with status 2 and
-    names what is missing."""
+def test_scheduler_process_serves_the_rest_api():
+    """``python -m ballista_tpu_torch.scheduler --api-port N`` serves the
+    REST API on port N, and stops on SIGTERM."""
+    import json
+    import signal
+    import socket
+    import time
+    import urllib.request
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        api_port = s.getsockname()[1]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run(
-        [sys.executable, "-m", "ballista_tpu_torch.scheduler", "--bind-port", "0",
-         "--api-port", "8199"], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2, (proc.returncode, proc.stderr[-2000:])
-    assert "REST API" in proc.stderr
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ballista_tpu_torch.scheduler", "--bind-host", "127.0.0.1",
+         "--bind-port", "0", "--api-port", str(api_port)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        state, deadline = None, time.time() + 60
+        while state is None and time.time() < deadline and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{api_port}/api/state",
+                                            timeout=5) as r:
+                    state = json.loads(r.read().decode())
+            except OSError:
+                time.sleep(0.1)
+        assert state is not None, proc.stderr.read()[-2000:] if proc.poll() is not None else ""
+        assert state["executors"] == 0 and state["active_jobs"] == 0
+        assert state["started"].startswith("sched-")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=60)
+    assert code == 0, proc.stderr.read()[-2000:]

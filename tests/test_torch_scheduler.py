@@ -23,6 +23,7 @@ import inspect
 import json
 import os
 import re
+import sys
 import types
 
 import pytest
@@ -77,9 +78,14 @@ def test_stage_plans_serialize_to_the_jax_schedulers_bytes(torch_tpch_dir, qname
 # ---- the JAX package's scheduler unit tests, on the port ---------------------------
 def _port_copy(filename: str) -> types.ModuleType:
     """``tests/<filename>`` with every ``ballista_tpu`` import rewritten to
-    the port's."""
+    the port's. A JAX test module it imports (``from test_x import ...``)
+    is read from that module's port copy, registered as ``port_test_x``."""
     path = os.path.join(TESTS, filename)
     src = re.sub(r"\bballista_tpu\b(?!_)", "ballista_tpu_torch", open(path).read())
+    for dep in set(re.findall(r"\bfrom (test_\w+) import\b", src)):
+        if f"port_{dep}" not in sys.modules:
+            sys.modules[f"port_{dep}"] = _port_copy(f"{dep}.py")
+    src = re.sub(r"\bfrom (test_\w+) import\b", r"from port_\1 import", src)
     mod = types.ModuleType(f"port_{filename[:-3]}")
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)
