@@ -425,12 +425,12 @@ class BallistaContext:
             rows.append(["error", "PLAN", "physical planner",
                          f"physical planning failed: {e}"])
             return self._values_df(self._FINDING_FIELDS, rows)
-        # the governor's dry run (PV007 verdicts), for the one device the
-        # port plans for; the plan verified is the governed one, which
-        # standalone execution runs and the scheduler's gate verifies
+        # the governor's dry run (PV007 verdicts) over the engine's mesh; the
+        # plan verified is the governed one, which standalone execution runs
+        # and the scheduler's gate verifies
         governed, memory_report = govern_with_config(
-            physical, self.config, 1, detected_budget_bytes=self._detected_budget(),
-            device=self.device)
+            physical, self.config, self._n_devices(),
+            detected_budget_bytes=self._detected_budget(), device=self.device)
         findings = verify_submission(
             logical, governed,
             fuse_exchange_max_rows=self.config.get(BALLISTA_TPU_FUSE_EXCHANGE_MAX_ROWS),
@@ -620,8 +620,8 @@ class BallistaContext:
         from ballista_tpu_torch.engine.memory_model import govern_with_config
 
         physical, report = govern_with_config(
-            physical, self.config, 1, detected_budget_bytes=self._detected_budget(),
-            device=self.device)
+            physical, self.config, self._n_devices(),
+            detected_budget_bytes=self._detected_budget(), device=self.device)
         self.last_memory_report = report
         if report is not None:
             rejected = [("PV007", d.operator, d.message) for d in report.rejections()]
@@ -640,6 +640,15 @@ class BallistaContext:
         on_card = self.backend == "torch" and self.device is not None \
             and self.device.startswith("cuda")
         return None if on_card else 0
+
+    def _n_devices(self) -> int:
+        """The device-alignment floor for the governor's partition solver:
+        a torch engine's mesh of shards (``parallel.mesh_shards``)."""
+        if self.backend != "torch" or self.device is None:
+            return 1
+        from ballista_tpu_torch.parallel import mesh_shards
+
+        return mesh_shards(self.device)
 
     def _get_engine(self):
         from ballista_tpu_torch.engine.engine import create_engine

@@ -5,9 +5,11 @@ Reference analog: the ``standalone`` feature
 used by BallistaContext::standalone and the client tests.
 
 The executors are ``ExecutorProcess``es in this process: they share one CUDA
-context, the torch engine's module-level leaf caches and grouped_sums'
-launch count, where executors in processes of their own
-(``python -m ballista_tpu_torch.executor``) share nothing.
+context, the process's mesh of shards (``parallel.mesh_shards``; with two
+or more, each registers as a fat executor and the scheduler promotes
+exchanges and whole chains onto it), the torch engine's module-level leaf
+caches and grouped_sums' launch count, where executors in processes of their
+own (``python -m ballista_tpu_torch.executor``) share nothing.
 """
 from __future__ import annotations
 

@@ -24,7 +24,14 @@ one stage program costs in device bytes, used at three layers:
   the budget.
 
 * **the fused exchange** — :func:`estimate_ici_exchange_bytes` is the
-  per-device footprint a fused exchange is checked against before it runs.
+  per-device footprint a fused exchange is checked against before it runs,
+  and :func:`estimate_megastage_bytes` a megastage's (both equal the JAX
+  package's). On a mesh whose shards share a card, each shard's budget is
+  the card's over its shards. What a mesh program holds in eager torch is
+  :func:`estimate_eager_exchange_bytes` per exchange, summed over a
+  program's exchanges by :func:`estimate_eager_megastage_bytes`; the
+  engine records it on the program's ``DeviceExecute`` span beside the
+  card's measured peak.
 
 The model is deliberately simple and conservative: padded power-of-two leaf
 buckets times static column widths (mirroring ``encode_host_batch``), the
@@ -200,6 +207,36 @@ def estimate_megastage_bytes(
     )
 
 
+def estimate_eager_exchange_bytes(schema: Schema, rows: int, n_devices: int) -> int:
+    """Per-shard device bytes of one exchange in eager torch
+    (``parallel/ici.make_hash_exchange``) of ``rows`` rows a shard of
+    ``schema``, and of the body that consumes what it received: the input
+    shard; the bucketing scratch (about a dozen int64 and bool arrays a
+    row) and one column's send-order gather; every column's send buffer
+    and received buffer (one round sends them all); and the consumer's
+    sort keys, positions and gathered columns over the received rows. The
+    buffers are priced at the always-sufficient capacity (``rows`` from
+    every shard), which bounds the skew-bounded one."""
+    n_local = bucket_size(max(1, int(rows)))
+    recv = max(1, n_devices) * n_local
+    w = row_data_bytes(schema) + 1 + 9   # + row validity, the int64 key, its null marker
+    return int(n_local * w + 120 * n_local + 2 * recv * w + recv * (w + 32))
+
+
+def estimate_eager_megastage_bytes(
+    segments: list[list[tuple[Schema, int]]], n_devices: int
+) -> int:
+    """The eager counterpart of :func:`estimate_megastage_bytes`, over the
+    same segments (rows over the whole mesh): eager torch has no donation, and a
+    join segment's received rows are the join's output, which its aggregate
+    reads, so no segment's bytes are known to be free before the next one
+    allocates; the segments' eager exchanges
+    (:func:`estimate_eager_exchange_bytes`) are summed."""
+    n = max(1, n_devices)
+    return sum(estimate_eager_exchange_bytes(s, -(-int(r) // n), n)
+               for seg in segments for s, r in seg)
+
+
 def fmt_bytes(n: float) -> str:
     n = float(n)
     for unit, width in (("GB", GiB), ("MB", 1 << 20), ("KB", 1 << 10)):
@@ -236,19 +273,27 @@ def detect_device_budget_bytes(device=None) -> int:
 DEVICE_MEMORY_BYTES = {"NVIDIA H100 80GB HBM3": 85_017_493_504}
 
 
-def budget_from_device_kinds(kinds) -> int:
+def shard_budget_bytes(card_bytes: int, shards_per_card: int) -> int:
+    """A mesh shard's budget: its card's, split evenly between the mesh's
+    shards on that card. The engine (from its own mesh) and the scheduler
+    (from the mesh shapes executors register) both split through here."""
+    return int(card_bytes) // max(1, int(shards_per_card))
+
+
+def budget_from_device_kinds(kinds, shards_per_card: int = 1) -> int:
     """The scheduler's budget from its executors' REGISTERED device kinds
     (``ExecutorSpecification.device_kind``: a torch executor on a card
     registers the card's name): :data:`DEVICE_MEMORY_BYTES` times
     :data:`DEFAULT_BUDGET_FRACTION`, as :func:`detect_device_budget_bytes`
-    computes it on that card, so admission and the executor's safety net
-    plan against one number; the least over the kinds that map (a mixed
-    cluster plans for its smallest card). 0 when none maps (a CPU or host
-    executor, a card not in the table): no budget at admission. The
-    scheduler never probes a device of its own."""
+    computes it on that card, split between ``shards_per_card`` mesh shards
+    (:func:`shard_budget_bytes`), so admission, promotion and the
+    executor's engine plan against one number; the least over the kinds
+    that map (a mixed cluster plans for its smallest card). 0 when none
+    maps (a CPU or host executor, a card not in the table): no budget at
+    admission. The scheduler never probes a device of its own."""
     budgets = [int(DEVICE_MEMORY_BYTES[k] * DEFAULT_BUDGET_FRACTION)
                for k in set(kinds) if k in DEVICE_MEMORY_BYTES]
-    return min(budgets) if budgets else 0
+    return shard_budget_bytes(min(budgets), shards_per_card) if budgets else 0
 
 
 def resolve_budget_bytes(config, detected_bytes: Optional[int] = None, device=None) -> int:

@@ -11,11 +11,19 @@ and probed on the device with ``searchsorted``. String dictionaries are host
 metadata — string predicates become lookup tables gathered by code on the
 device.
 
-As the JAX engine does on one chip, a final aggregate over a hash exchange
-of a partial aggregate runs as one fused device program (partial aggregate,
-exchange, final aggregate: ``engine/fused_exchange.py``), and so does a
+As the JAX engine does over its mesh, a final aggregate over a hash exchange
+of a partial aggregate runs as one fused program over the engine's mesh of
+``mesh_devices`` shards (partial aggregate, exchange, final aggregate:
+``engine/fused_exchange.py``; the mesh: ``parallel``), and so does a
 partitioned join over two exchanges whose build keys are unique; config
-``ballista.tpu.ici_shuffle=false`` turns both off. Leaf encodings and their
+``ballista.tpu.ici_shuffle=false`` turns both off. A fused program that
+declines by design (a zero-row or over-cap input, repeated build keys, rows
+past an exchange's capacity, a budget it exceeds, a shard that failed) is
+counted in ``op.FusedDeclined.count`` and the materialized exchange runs.
+An exchange the scheduler promoted onto the mesh (``IciExchangeExec``) or a
+chain it promoted whole (``MegastageExec``, ``engine/megastage.py``) is a
+contract instead: every decline raises ``IciDemoted`` naming its exchanges,
+and the scheduler splits them onto the Flight tier. Leaf encodings and their
 device copies are cached across queries under content keys (scan files and
 their stamps, in-memory batch ids, the dtype policy; the device copies also
 under the engine's device), so a warm query re-reads no scan it has seen;
@@ -53,8 +61,7 @@ A stage over a shuffle read streams (``execute_partition_stream``): chunks
 coalesced to ``ballista.tpu.stream_device_rows`` run one device stage each,
 with the next chunk's host-to-device copy on a side CUDA stream when
 ``ballista.engine.prefetch_depth`` > 0, and a final aggregate folds each
-chunk's states on the device in ``merge`` mode. The multi-device exchange is
-not ported yet.
+chunk's states on the device in ``merge`` mode.
 """
 from __future__ import annotations
 
@@ -75,11 +82,13 @@ from ballista_tpu_torch.config import (
 )
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine.numpy_engine import NumpyEngine
-from ballista_tpu_torch.errors import ExecutionError
+from ballista_tpu_torch.errors import ExecutionError, IciDemoted
 from ballista_tpu_torch.ops import kernels_np as KNP
 from ballista_tpu_torch.ops import kernels_torch as KT
 from ballista_tpu_torch.ops.batch import ColumnBatch
 from ballista_tpu_torch.ops.eval_np import evaluate
+from ballista_tpu_torch.parallel import mesh_shards
+from ballista_tpu_torch.parallel.mesh import build_mesh, shards_per_card
 from ballista_tpu_torch.plan import physical as P
 from ballista_tpu_torch.plan.expr import (
     FOLLOWING, PRECEDING, Agg, Alias, BinaryOp, Case, Cast, Col, Expr, Func, InList, IsNull,
@@ -158,9 +167,8 @@ class TorchEngine(NumpyEngine):
                  device: Optional[str] = None):
         super().__init__(config or BallistaConfig())
         self.device = torch.device(resolve_device(device))
-        # width of the fused exchange: the engine's one device (a wider
-        # world needs a process group, see parallel/__init__.py)
-        self.mesh_devices = 1
+        # width of the fused exchange: the process's mesh (parallel.mesh_shards)
+        self.mesh_devices = mesh_shards(self.device)
         # fused-exchange results of this execution, keyed by the exchange's
         # (or the join's) node id; None records a declined attempt
         self._fused: dict[int, Optional[list]] = {}
@@ -209,6 +217,13 @@ class TorchEngine(NumpyEngine):
 
     # ---- dispatch --------------------------------------------------------------
     def _exec(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
+        if isinstance(plan, P.MegastageExec):
+            # a promoted whole chain: one mesh program, or a demotion
+            return self._run_megastage_node(plan, part)
+        if isinstance(plan, P.IciExchangeExec):
+            # a promoted exchange runs only inside a collective program of
+            # its consumer; reaching the node means every such path declined
+            raise IciDemoted([plan.exchange_id], "no collective path for this exchange")
         fused = self._try_fused_exchange(plan, part)
         if fused is not None:
             return fused
@@ -273,75 +288,163 @@ class TorchEngine(NumpyEngine):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _dev_key(self, key: tuple) -> tuple:
-        """A device-cache key: the content key with this engine's device and
-        dtype policy."""
-        return (key, str(self.device), KT.NATIVE_DTYPES)
+    def _dev_key(self, key: tuple, device=None) -> tuple:
+        """A device-cache key: the content key with its device (default the
+        engine's) and the dtype policy."""
+        return (key, str(device or self.device), KT.NATIVE_DTYPES)
 
     def _min_device_rows(self) -> int:
         return int(self.config.get(BALLISTA_TPU_MIN_DEVICE_ROWS) or 0)
 
-    # ---- fused single-device exchange ------------------------------------------------
+    # ---- fused exchanges over the mesh ----------------------------------------------
     def _try_fused_exchange(self, plan: P.PhysicalPlan, part: int) -> Optional[ColumnBatch]:
-        """final-agg(Repartition(partial-agg(...))) as one device program:
-        the partial aggregate over the whole input, its states hash-exchanged
-        and merged by the final aggregate. None when the shape does not fit
-        (the materialized exchange runs instead)."""
+        """final-agg(Repartition(partial-agg(...))) as one program over the
+        mesh: the partial aggregate per shard, its states hash-exchanged and
+        merged by the final aggregate on their owning shard. None when the
+        shape does not fit (the materialized exchange runs instead); for a
+        promoted exchange, ``IciDemoted`` with the reason."""
         if not (isinstance(plan, P.HashAggregateExec) and plan.mode == "final"):
             return None
         rep = plan.input
-        if not isinstance(rep, P.RepartitionExec) or not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
+        if not isinstance(rep, P.RepartitionExec):
             return None
+        ici_ids = [rep.exchange_id] if isinstance(rep, P.IciExchangeExec) else None
+        if not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
+            return self._ici_demote(ici_ids, "engine ICI shuffle disabled")
         partial = rep.input
-        if not (isinstance(partial, P.HashAggregateExec) and partial.mode == "partial"
-                and _supported(partial)) or self._fuse_over_cap(rep.est_rows):
-            return None
-        if self._fused_over_budget(id(rep), [rep]):
-            return None
+        if not (isinstance(partial, P.HashAggregateExec) and partial.mode == "partial"):
+            return self._ici_demote(ici_ids, "exchange input is not a partial aggregate")
+        if not _supported(partial):
+            return self._ici_demote(ici_ids, "aggregate not expressible on device")
+        if self._fuse_over_cap(rep.est_rows):
+            return self._ici_demote(ici_ids, "input exceeds the fused-exchange cap")
+        over = self._fused_over_budget(id(rep), [rep])
+        if over:
+            return self._ici_demote(ici_ids, over)
         from ballista_tpu_torch.engine import fused_exchange as FX
 
         return self._fused_part(
-            id(rep), part, "op.FusedIciExchange.count",
-            lambda coll: FX.run_fused_aggregate(self, plan, partial, self.mesh_devices, coll))
+            id(rep), part, "op.FusedIciExchange.count", ici_ids,
+            "collective aggregate declined at runtime",
+            lambda: FX.run_fused_aggregate(self, plan, partial, self.mesh_devices))
 
     def _try_fused_join(self, plan: P.HashJoinExec, part: int) -> Optional[ColumnBatch]:
-        """A partitioned join over two exchanges as one device program (see
-        fused_exchange.run_fused_join)."""
+        """A partitioned join over two exchanges as one program over the mesh
+        (see fused_exchange.run_fused_join)."""
+        ici_ids = [s.exchange_id for s in (plan.left, plan.right)
+                   if isinstance(s, P.IciExchangeExec)] or None
         if not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
-            return None
+            return self._ici_demote(ici_ids, "engine ICI shuffle disabled")
         if self._fuse_over_cap(max(plan.left.est_rows, getattr(plan.right, "est_rows", 0))):
-            return None
+            return self._ici_demote(ici_ids, "input exceeds the fused-exchange cap")
         # both exchanged sides are on the device at once
-        if self._fused_over_budget(id(plan), [plan.left, plan.right]):
-            return None
+        over = self._fused_over_budget(id(plan), [plan.left, plan.right])
+        if over:
+            return self._ici_demote(ici_ids, over)
         from ballista_tpu_torch.engine import fused_exchange as FX
 
         return self._fused_part(
-            id(plan), part, "op.FusedIciJoin.count",
-            lambda coll: FX.run_fused_join(self, plan, self.mesh_devices, coll))
+            id(plan), part, "op.FusedIciJoin.count", ici_ids,
+            "collective join declined at runtime (skew overflow or non-unique build keys)",
+            lambda: FX.run_fused_join(self, plan, self.mesh_devices))
 
-    def _fused_part(self, key: int, part: int, metric: str, run) -> Optional[ColumnBatch]:
+    def _fused_part(self, key: int, part: int, metric: str, ici_ids, declined: str,
+                    run) -> Optional[ColumnBatch]:
         """Partition ``part`` of a fused program's result, run once per
         execution. A program that returns None declined by design (a zero-row
         or over-cap input, repeated build keys, rows past an exchange's
-        capacity): ``op.FusedDeclined.count``. A stage the device cannot
-        express falls back as an unfused stage would; any other failure
-        raises."""
-        from ballista_tpu_torch.parallel import collective_for
+        capacity), as does one an injected ``ici.exchange`` fault or a failed
+        shard stopped: ``op.FusedDeclined.count``. A stage the device cannot
+        express falls back as an unfused stage would. A promoted exchange
+        demotes (``declined`` its reason) instead of either."""
+        from ballista_tpu_torch.parallel import ShardFailed
+        from ballista_tpu_torch.utils import faults
 
         if key not in self._fused:
-            collective = collective_for(self.mesh_devices)  # raises past one device
             try:
-                self._fused[key] = run(collective)
+                for i in ici_ids or ():
+                    faults.check("ici.exchange", {"exchange_id": i})
+                self._fused[key] = run()
+            except ShardFailed as err:
+                if isinstance(err.error, (_HostFallback, KT.DeviceUnsupported)):
+                    self._fused[key] = None
+                    return self._ici_demote(ici_ids, "fused program fell back to host")
+                log.warning("fused program declined: %s", err, exc_info=err.error)
+                self._decline(key)
             except (_HostFallback, KT.DeviceUnsupported):
                 self._fused[key] = None
+                return self._ici_demote(ici_ids, "fused program fell back to host")
+            except faults.InjectedFault:
+                self._decline(key)
             else:
                 if self._fused[key] is None:
                     self._metric("op.FusedDeclined.count", 1.0)
         result = self._fused[key]
         if result is None:
-            return None
+            return self._ici_demote(ici_ids, declined)
         self._metric(metric, 1.0)
+        return result[part]
+
+    def _decline(self, key: int) -> None:
+        self._fused[key] = None
+        self._metric("op.FusedDeclined.count", 1.0)
+
+    @staticmethod
+    def _ici_demote(ici_ids, reason: str):
+        """None (a decline: the materialized exchange runs) for an exchange
+        the engine fused by its own choice; for a scheduler-promoted one,
+        where a host run would defeat the planned boundary, ``IciDemoted``,
+        so the scheduler splits it onto the Flight tier."""
+        if ici_ids:
+            raise IciDemoted(ici_ids, reason)
+        return None
+
+    def _run_megastage_node(self, ms: P.MegastageExec, part: int) -> ColumnBatch:
+        """A promoted megastage as one mesh program (engine/megastage.py).
+        Every decline raises ``IciDemoted`` naming the aggregate exchange the
+        megastage promotion added, so the scheduler strips the wrapper and
+        splits that boundary; the join's own promoted exchanges then retry
+        on the fused paths, which demote themselves if they decline too."""
+        from ballista_tpu_torch.config import BALLISTA_ENGINE_MEGASTAGE
+        from ballista_tpu_torch.engine import megastage as MS
+        from ballista_tpu_torch.parallel import ShardFailed
+        from ballista_tpu_torch.utils import faults
+
+        parts = MS.megastage_parts(ms)
+        all_ids = [n.exchange_id for n in P.walk_physical(ms) if isinstance(n, P.IciExchangeExec)]
+        ici_ids = [parts[1].exchange_id] if parts is not None else (all_ids or [0])
+        if not self.config.get(BALLISTA_ENGINE_MEGASTAGE):
+            return self._ici_demote(ici_ids, "engine megastage disabled")
+        if not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
+            return self._ici_demote(ici_ids, "engine ICI shuffle disabled")
+        if parts is None:
+            return self._ici_demote(ici_ids, "not a compilable megastage chain")
+        _final, agg_ex, _partial, join = parts
+        if any(self._fuse_over_cap(r.est_rows) for r in (agg_ex, join.left, join.right)):
+            return self._ici_demote(ici_ids, "input exceeds the fused-exchange cap")
+        budget = self._hbm_budget()
+        if budget > 0:
+            # the running max over segments, as the JAX package prices it
+            segments = [[(r.schema(), r.est_rows) for r in (join.left, join.right) if r.est_rows],
+                        [(agg_ex.schema(), agg_ex.est_rows)] if agg_ex.est_rows else []]
+            est = MM.estimate_megastage_bytes(segments, self.mesh_devices)
+            if est > budget:
+                return self._ici_demote(
+                    ici_ids, f"hbm_budget: megastage widest segment estimated "
+                    f"{MM.fmt_bytes(est)}/device over the {MM.fmt_bytes(budget)} budget")
+        key = id(ms)
+        if key not in self._fused:
+            try:
+                for i in all_ids:
+                    faults.check("ici.exchange", {"exchange_id": i})
+                self._fused[key] = MS.run_megastage(self, ms, self.mesh_devices)
+            except (ShardFailed, _HostFallback, KT.DeviceUnsupported,
+                    faults.InjectedFault) as err:
+                log.info("megastage declined: %s", err)
+                self._fused[key] = None
+        result = self._fused[key]
+        if result is None:
+            return self._ici_demote(ici_ids, "megastage declined at runtime")
         return result[part]
 
     def _fuse_over_cap(self, est_rows: int) -> bool:
@@ -351,24 +454,24 @@ class TorchEngine(NumpyEngine):
         cap = int(self.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
         return bool(cap) and est_rows > cap
 
-    def _fused_over_budget(self, key: int, exchanges: list) -> bool:
-        """True when the fused program keyed ``key`` would hold more than the
-        device budget: its exchanges' estimated footprints (the exchanged
-        input, the receive buffer and the merged result of each), from the
-        planner's row estimates. A designed decline, counted once per
-        execution in ``op.FusedDeclined.count``: the materialized exchange
-        runs instead."""
+    def _fused_over_budget(self, key: int, exchanges: list) -> Optional[str]:
+        """Why the fused program keyed ``key`` would hold more than the
+        device budget (None when it fits): its exchanges' estimated
+        footprints a shard (the exchanged input, the receive buffer and the
+        merged result of each), from the planner's row estimates. A designed
+        decline, counted once per execution in ``op.FusedDeclined.count``:
+        the materialized exchange runs instead."""
         budget = self._hbm_budget()
         if budget <= 0:
-            return False
+            return None
         est = sum(MM.estimate_ici_exchange_bytes(x.schema(), x.est_rows, self.mesh_devices)
                   for x in exchanges if isinstance(x, P.RepartitionExec) and x.est_rows)
         if est <= budget:
-            return False
+            return None
         if key not in self._fused:
-            self._fused[key] = None
-            self._metric("op.FusedDeclined.count", 1.0)
-        return True
+            self._decline(key)
+        return (f"hbm_budget: exchange estimated {MM.fmt_bytes(est)}/device over the "
+                f"{MM.fmt_bytes(budget)} budget")
 
     # ---- the memory governor -------------------------------------------------------
     def _hbm_budget(self) -> int:
@@ -377,7 +480,13 @@ class TorchEngine(NumpyEngine):
         from the engine's card (a CPU engine probes nothing and has none),
         < 0 turns the governor off."""
         if self._hbm_budget_v is None:
-            detected = None if self.device.type == "cuda" else 0
+            detected = 0
+            if self.device.type == "cuda":
+                # a card's budget is shared by the mesh's shards on it
+                mesh = build_mesh(self.mesh_devices, self.device)
+                detected = MM.shard_budget_bytes(
+                    min(MM.detect_device_budget_bytes(d) for d in set(mesh)),
+                    shards_per_card(mesh))
             self._hbm_budget_v = MM.resolve_budget_bytes(self.config, detected, self.device)
         return self._hbm_budget_v
 
@@ -676,25 +785,28 @@ class TorchEngine(NumpyEngine):
         self._metric("op.PrefetchH2D.count", 1.0)
         return tensors
 
-    def _cached_on_device(self, cache_key: Optional[tuple], arrays: list) -> list:
-        """``arrays`` on the device, read through the device cache under
-        ``cache_key`` unless it is None."""
+    def _cached_on_device(self, cache_key: Optional[tuple], arrays: list,
+                          device=None) -> list:
+        """``arrays`` on ``device`` (default the engine's), read through the
+        device cache under ``cache_key`` unless it is None."""
         if cache_key is None:
-            return self._to_device(arrays)
-        key = self._dev_key(cache_key)
-        cached = _DEV_CACHE.get_with(key, lambda: self._to_device(arrays))
+            return self._to_device(arrays, device)
+        key = self._dev_key(cache_key, device)
+        cached = _DEV_CACHE.get_with(key, lambda: self._to_device(arrays, device))
         if len(cached) != len(arrays):  # stale entry shape: reload
-            cached = self._to_device(arrays)
+            cached = self._to_device(arrays, device)
             _DEV_CACHE.put(key, cached)
         return cached
 
-    def _to_device(self, arrays: list) -> list:
-        """Host arrays on the device: the copies issued non-blocking from
-        pinned memory and awaited together, so the transfer time stays out
-        of the execute time."""
+    def _to_device(self, arrays: list, device=None) -> list:
+        """Host arrays on ``device`` (default the engine's): the copies
+        issued non-blocking from pinned memory and awaited together, so the
+        transfer time stays out of the execute time."""
+        device = torch.device(device or self.device)
         t0 = time.time()
-        out = [KT.host_to_device(a, self.device) for a in arrays]
-        self._sync()
+        out = [KT.host_to_device(a, device) for a in arrays]
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         self._metric("op.DeviceTransfer.time_s", time.time() - t0)
         self._metric("op.DeviceTransfer.bytes", float(sum(a.nbytes for a in arrays)))
         return out
@@ -718,6 +830,11 @@ class TorchEngine(NumpyEngine):
         leaves: dict[int, tuple] = {}
 
         def visit(node: P.PhysicalPlan):
+            if isinstance(node, P.MegastageExec):
+                # a promoted whole chain (or its demotion): its output is a leaf
+                leaves[id(node)] = ("out", self._encode(self._run_megastage_node(node, part)),
+                                    None, None, node)
+                return
             # a final aggregate over an exchange, or a partitioned join, may
             # run as a fused program; its merged output is a leaf here
             if isinstance(node, P.HashAggregateExec) and node.mode == "final":
@@ -798,7 +915,11 @@ class TorchEngine(NumpyEngine):
 
     def _exec_child(self, node: P.PhysicalPlan, part: int) -> ColumnBatch:
         """Host-materialize a leaf; its own subtree may still use device
-        stages (NumpyEngine dispatches children through ``self._exec``)."""
+        stages (NumpyEngine dispatches children through ``self._exec``). A
+        promoted chain or exchange never materializes on the host: it runs
+        as its mesh program or demotes."""
+        if isinstance(node, (P.MegastageExec, P.IciExchangeExec)):
+            return self._exec(node, part)
         return NumpyEngine._exec(self, node, part)
 
     # ---- device streaming (bounded-memory shuffle consumers) -------------------------

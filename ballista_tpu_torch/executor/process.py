@@ -17,10 +17,12 @@ separate from the control-plane threads, so a busy device never starves
 heartbeats (cpu_bound_executor.rs).
 
 A torch executor runs its stages on one device, ``cuda`` unless its config
-names another, and refuses to start when CUDA is asked for and missing. It
-registers that card's name as its device kind, which the scheduler maps to
-the card's memory budget at admission. Mesh groups (executors sharing one
-collective program) are not ported yet.
+names another, and refuses to start when CUDA is asked for and missing; its
+fused and promoted programs run over the process's mesh of shards
+(``parallel``), one host thread a shard. It registers the mesh's shard count
+and the card's name as its device kind, which the scheduler maps to the
+card's memory budget at admission. Mesh groups (executors in several
+processes sharing one collective program) are not ported yet.
 """
 from __future__ import annotations
 
@@ -334,6 +336,15 @@ class ExecutorProcess:
             deadline = time.time() + 30
             while self.executor.running_count() and time.time() < deadline:
                 time.sleep(0.1)
+            # the finished tasks' statuses go out with the next poll
+            while not self._status_q.empty() and time.time() < deadline:
+                time.sleep(0.01)
+        # no poll or heartbeat may reach the scheduler after ExecutorStopped:
+        # either would register this executor again
+        self._stop.set()
+        for t in self._threads:
+            if t is not threading.current_thread():
+                t.join(timeout=15)
         try:
             self.scheduler.ExecutorStopped(
                 pb.ExecutorStoppedParams(executor_id=self.executor_id, reason="shutdown"),
@@ -341,7 +352,6 @@ class ExecutorProcess:
             )
         except Exception:  # noqa: BLE001
             pass
-        self._stop.set()
         if self._grpc_server is not None:
             self._grpc_server.stop(grace=0.5)
         if self.flight is not None:
@@ -613,13 +623,22 @@ def _host_metrics(executor) -> dict[str, float]:
 
 
 def _device_inventory(backend: str, device: Optional[str]) -> tuple[int, str, str]:
-    """(devices, kind, mesh shape) as registered: a torch executor on a card
-    reports that one card, under its name (``torch.cuda.get_device_name``),
-    whatever else the host holds — its engine runs on that card alone, and
-    only a count of 2 or more would let the scheduler promote exchanges onto
-    a device mesh, which the port cannot run yet."""
-    if backend != "torch" or device is None or not device.startswith("cuda"):
+    """(devices, kind, mesh shape) as registered: a torch executor reports
+    its mesh's shard count (``parallel.mesh_shards``: one per visible card
+    unless forced) and, on a card, the card's name
+    (``torch.cuda.get_device_name``), as a JAX executor reports
+    ``len(jax.devices())``; a mesh of 2 or more lets the scheduler promote
+    exchanges and whole chains onto it. The mesh shape (``"CxS"``,
+    ``parallel.mesh.mesh_shape``) tells the scheduler how many shards share
+    a card, so that it splits the card's budget as the engine does. A host
+    (numpy) executor reports no device."""
+    if backend != "torch" or device is None:
         return (0, "cpu", "")
     import torch
 
-    return (1, torch.cuda.get_device_name(torch.device(device)), "1")
+    from ballista_tpu_torch.parallel.mesh import build_mesh, mesh_shape
+
+    mesh = build_mesh(None, device)
+    kind = torch.cuda.get_device_name(torch.device(device)) if device.startswith("cuda") \
+        else "cpu"
+    return (len(mesh), kind, mesh_shape(mesh))

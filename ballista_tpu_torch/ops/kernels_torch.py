@@ -2153,6 +2153,12 @@ def grouped_sums_calls() -> int:
     return getattr(_GS_CALLS, "n", 0)
 
 
+def count_grouped_sums_calls(n: int) -> None:
+    """Adds ``n`` calls made on other threads for this thread's work (a
+    mesh program's shards) to this thread's count."""
+    _GS_CALLS.n = grouped_sums_calls() + int(n)
+
+
 def _mask(row_valid, null):
     return row_valid if null is None else (row_valid & ~null)
 

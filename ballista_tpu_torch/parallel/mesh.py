@@ -1,13 +1,51 @@
-"""Shuffle widths over a world of devices.
+"""The mesh and shuffle widths over it (the port of
+``ballista_tpu/parallel/mesh.py``).
 
-The device-neutral half of ``ballista_tpu/parallel/mesh.py``: the exchange
-width is a multiple of the device count, so every device owns an equal share
-of the exchange's partitions, and the memory governor's budget-aware solve
-for that width. The JAX package's ``build_mesh`` has no counterpart: the
-port's world of devices is passed to the fused exchange as a collective
-(``parallel/__init__.py``).
+``build_mesh`` lists the shards' devices; the exchange width is a multiple of
+the shard count, so every shard owns an equal share of the exchange's
+partitions, and the memory governor solves that width against its budget.
 """
 from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ballista_tpu_torch.parallel import mesh_shards
+
+
+def build_mesh(n_devices: Optional[int] = None, device="cuda") -> list:
+    """The devices of a mesh of ``n_devices`` shards (default: the process's
+    mesh, ``parallel.mesh_shards``) for an engine on ``device``: on a card,
+    the visible cards round-robin from the first (several shards share a
+    card when there are fewer cards than shards); on the CPU, ``cpu`` for
+    every shard."""
+    dev = torch.device(device)
+    n = n_devices or mesh_shards(dev)
+    if dev.type != "cuda":
+        return [torch.device("cpu")] * n
+    cards = torch.cuda.device_count()
+    if cards < 1:
+        raise RuntimeError("a CUDA mesh needs a visible card")
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def shards_per_card(devices: list) -> int:
+    """The most shards of ``devices`` on one device."""
+    return max((devices.count(d) for d in set(devices)), default=1)
+
+
+def mesh_shape(devices: list) -> str:
+    """The shape a torch executor registers for its mesh: ``"CxS"``, C
+    devices with S shards on each (``"1x4"``: four shards of one card)."""
+    return f"{len(set(devices))}x{shards_per_card(devices)}"
+
+
+def shards_per_card_of(shape: str) -> int:
+    """S of a registered ``"CxS"`` mesh shape; 1 for any other (a host
+    executor's empty shape)."""
+    cards, sep, per = shape.partition("x")
+    return int(per) if sep and cards.isdigit() and per.isdigit() and int(per) > 0 else 1
 
 # budget solver ceiling: a stage needing more exchange partitions than this
 # against its device-memory budget is mis-planned (paged join or rejection),

@@ -58,6 +58,9 @@ class ExecutorInfo:
     # control-plane budget signal — the scheduler sizes partitions against
     # the platform its executors REPORT, never its own process's device
     device_kind: str = ""
+    # mesh shards on each of its cards (the S of the registered "CxS" mesh
+    # shape): the card's budget is split between them
+    shards_per_card: int = 1
     # quarantine bookkeeping (scheduler-side health tracking)
     consecutive_failures: int = 0
     quarantined_until: float = 0.0
@@ -425,6 +428,13 @@ class InMemoryClusterState:
         with self._lock:
             alive = self.alive_executors()
         return {e.device_kind for e in alive if e.device_kind}
+
+    def max_shards_per_card(self) -> int:
+        """The most mesh shards any alive executor runs on one card: the
+        split of the card's budget the governor plans with."""
+        with self._lock:
+            alive = self.alive_executors()
+        return max((e.shards_per_card for e in alive), default=1)
 
     def complete_mesh_groups(self) -> dict[str, list[ExecutorInfo]]:
         """Mesh groups whose EVERY member is alive, keyed by group id; members

@@ -333,6 +333,8 @@ class SchedulerServer:
 
     # ---- RPC: executor lifecycle ------------------------------------------------------
     def register_executor(self, req: pb.RegisterExecutorParams, ctx) -> pb.RegisterExecutorResult:
+        from ballista_tpu_torch.parallel.mesh import shards_per_card_of
+
         m = req.metadata
         self.cluster.register(
             ExecutorInfo(
@@ -343,6 +345,7 @@ class SchedulerServer:
                 mesh_group_process_id=m.specification.mesh_group_process_id,
                 device_count=m.specification.num_devices,
                 device_kind=m.specification.device_kind,
+                shards_per_card=shards_per_card_of(m.specification.mesh_shape),
             )
         )
         log.info("registered executor %s at %s:%s", m.id, m.host, m.port)
@@ -670,6 +673,7 @@ class SchedulerServer:
             # node tree, so jobs never share mutable plan state.
             n_devices = max(1, self.cluster.max_device_count())
             device_kinds = tuple(sorted(self.cluster.device_kinds()))
+            shards_per_card = self.cluster.max_shards_per_card()
             # the catalog-version signal, shared by the plan cache key AND
             # the cross-query exchange cache key (docs/serving.md)
             tdigest = table_defs_digest([
@@ -693,6 +697,7 @@ class SchedulerServer:
                     settings_digest(settings),
                     n_devices,
                     device_kinds,
+                    shards_per_card,
                 )
                 entry = self.plan_cache.get(cache_key)
             logical = None
@@ -731,7 +736,7 @@ class SchedulerServer:
                 physical, memory_report = govern_with_config(
                     physical, config, n_devices,
                     detected_budget_bytes=budget_from_device_kinds(
-                        set(device_kinds)
+                        set(device_kinds), shards_per_card
                     ),
                 )
                 if memory_report is not None and memory_report.rejections():

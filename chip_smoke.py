@@ -133,7 +133,29 @@ Phases, each of which passes or ends the run with a non-zero exit:
              ballista_tpu_torch.client.cli`` in a subprocess on ``cuda``
              runs q6 from a ``-f`` script, rows exact. It prints every wall,
              the span totals, the drain's time and its own seconds.
-10. timing — grouped_sums at one column (2^21 rows, k = 12, int64), at
+10. mesh   — the device mesh (``run_mesh_phase``) on MESH_SHARDS shards of
+             the card (``parallel.force_mesh_shards``): (1) the q1 flagship,
+             ``q1_local_step`` at 2^23 rows against numpy f64 (counts exact,
+             sums within 1e-9 relative) and ``q1_distributed_step`` over the
+             mesh equal to it, then what the shard runner costs on 1 and
+             MESH_SHARDS shards (``mesh_costs``: thread start, a collective
+             round, the flagship's steps); (2) q1, q3, q5 and q12 standalone
+             on the mesh,
+             cold then warm, rows held as in the slice, the fused counts and
+             declines of the one-device path, zero host fallbacks, one
+             grouped_sums launch per shard's aggregate (q1: 8, launched from
+             the shard threads and counted), each printed beside the slice's
+             one-device wall; (3) a scheduler with one torch executor on the
+             mesh: MESH_AGG_SQL, MESH_JOIN_SQL and q5 (joins partitioned)
+             promoted, in fewer stages than on the Flight tier
+             (``ballista.shuffle.ici=false``), with ``op.IciExchange.count``
+             in their stage metrics and the Flight tier's rows; MESH_JOIN_SQL
+             as one megastage (one fused program in the job's trace); and
+             MESH_AGG_SQL under ``ICI_FAULT``, demoted: one stage more, no
+             collective, exact rows. Every mesh program of at least 1 MB must
+             measure no more than its eager estimate (its DeviceExecute
+             span's ``hbm_est_bytes`` and ``hbm_peak_bytes``).
+11. timing — grouped_sums at one column (2^21 rows, k = 12, int64), at
              the largest and smallest stages of q1's warm run (the fused
              program's partial aggregate and final merge), at the largest
              stage of its unfused run, and at a
@@ -1957,6 +1979,300 @@ def run_surfaces_phase(device: str, tables: dict, tag: str, refs: tuple) -> dict
     return out
 
 
+# ---- 10. mesh --------------------------------------------------------------------
+MESH_SHARDS = 4
+MESH_QUERIES = ("q1", "q3", "q5", "q12")
+# the scheduler cases of tests/test_torch_ici.py and tests/test_torch_megastage.py
+MESH_AGG_SQL = (
+    "select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty, "
+    "count(*) as n from lineitem group by l_returnflag, l_linestatus "
+    "order by l_returnflag, l_linestatus")
+MESH_JOIN_SQL = (
+    "select o_orderpriority, count(*) as n, sum(l_extendedprice) as rev "
+    "from lineitem join orders on l_orderkey = o_orderkey "
+    "group by o_orderpriority order by o_orderpriority")
+ICI_FAULT = "ici.exchange:error@p=1:seed=7"
+PARTITIONED = {"ballista.optimizer.broadcast_rows_threshold": "0"}
+# grouped_sums calls a fused aggregate makes on each shard: its partial
+# aggregate and its final merge (tests/test_torch_mesh.py)
+CALLS_PER_SHARD = 2
+
+
+def q1_flagship_reference(args) -> tuple:
+    """The flagship's q1 sums and counts in numpy f64 from the same inputs."""
+    qty, price, disc, tax, ship, rf, ls, valid = (a.cpu().numpy() for a in args)
+    from ballista_tpu_torch.parallel.flagship import CUTOFF, N_GROUPS
+
+    keep = valid & (ship <= CUTOFF)
+    ids = (rf * 2 + ls)[keep]
+    dp = price * (1.0 - disc)
+    cols = [qty, price, dp, dp * (1.0 + tax), disc]
+    sums = np.stack([np.bincount(ids, weights=c[keep], minlength=N_GROUPS) for c in cols])
+    return sums, np.bincount(ids, minlength=N_GROUPS)
+
+
+def run_flagship(device: str, n: int, tag: str) -> None:
+    """q1_local_step on ``device`` at ``n`` rows against numpy f64 (counts
+    exact, sums within 1e-9 relative: another summation order), and
+    q1_distributed_step over a mesh of MESH_SHARDS shards equal to it (its
+    groups summed over the shards that own them)."""
+    from ballista_tpu_torch.parallel import flagship as FLAG
+    from ballista_tpu_torch.parallel.mesh import build_mesh
+
+    args = FLAG.q1_example_args(n=n, seed=3, device=device)
+    want_sums, want_counts = q1_flagship_reference(args)
+    t0 = time.time()
+    sums, counts = FLAG.q1_local_step()(*args)
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    local_s = time.time() - t0
+    if not (torch.isfinite(sums).all() and sums.shape == (5, FLAG.N_GROUPS)):
+        raise AssertionError(f"flagship local: sums {sums.shape} not finite")
+    if not np.array_equal(counts.cpu().numpy(), want_counts):
+        raise AssertionError(f"flagship local counts {counts.tolist()}, numpy {want_counts}")
+    if not np.allclose(sums.cpu().numpy(), want_sums, rtol=1e-9, atol=0):
+        raise AssertionError("flagship local sums differ from numpy f64")
+    mesh = build_mesh(MESH_SHARDS, device)
+    step = FLAG.q1_distributed_step(mesh)
+    t0 = time.time()
+    dsums, dcounts = step(*args)
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    dist_s = time.time() - t0
+    dsums = dsums.cpu().numpy().reshape(MESH_SHARDS, 5, FLAG.N_GROUPS).sum(0)
+    dcounts = dcounts.cpu().numpy().reshape(MESH_SHARDS, FLAG.N_GROUPS).sum(0)
+    if not np.array_equal(dcounts, counts.cpu().numpy()):
+        raise AssertionError(f"flagship distributed counts {dcounts} vs local {counts}")
+    if not np.allclose(dsums, sums.cpu().numpy(), rtol=1e-9, atol=0):
+        raise AssertionError("flagship distributed sums differ from the local step's")
+    print(f"mesh flagship: q1_local_step at n={n} on {device} {local_s:.4f} s, exact counts, "
+          f"sums within 1e-9 of numpy f64; q1_distributed_step over {MESH_SHARDS} shards "
+          f"({[str(d) for d in mesh]}) {dist_s:.4f} s, equal [{tag}]", flush=True)
+    costs = {n_dev: mesh_costs(device, args, n_dev) for n_dev in (1, MESH_SHARDS)}
+    print(f"mesh costs (ms, median; shards: costs): {json.dumps(costs)}, switch interval "
+          f"{sys.getswitchinterval()} s [{tag}]", flush=True)
+
+
+def mesh_costs(device: str, args: tuple, n_dev: int) -> dict:
+    """What the shard runner costs on ``n_dev`` shards of ``device``, host
+    clock around work that ends in a device sync: ``shard_map`` of a body
+    that does nothing (the threads' start and join), one ``all_sum`` round
+    and one ``all_to_all`` round (64 K float32 a peer), q1_local_step over
+    each shard's slice of ``args`` through ``shard_map``, and
+    q1_distributed_step. The median of 5 runs after a warm-up."""
+    from ballista_tpu_torch import parallel
+    from ballista_tpu_torch.parallel import flagship as FLAG
+    from ballista_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(n_dev, device)
+
+    def median_ms(fn, per: int = 1) -> float:
+        times = []
+        for i in range(6):
+            t0 = time.perf_counter()
+            fn()
+            if device.startswith("cuda"):
+                torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) / per)
+        return sorted(times)[len(times) // 2] * 1e3
+
+    def rounds(op: str, k: int):
+        def body():
+            coll = parallel.collective_for(n_dev)
+            # "cuda" is the shard's own card on its thread
+            x = (torch.ones((), device=device) if op == "all_sum"
+                 else torch.ones((n_dev, 1 << 16), device=device))
+            for _ in range(k):
+                x = coll.all_sum(x) * 0 + 1 if op == "all_sum" else coll.all_to_all([x])[0]
+            return x
+        return lambda: parallel.shard_map(body, [()] * n_dev, mesh)
+
+    shards = [[a.to(d) for a in part] for part, d in zip(parallel.split_rows(args, n_dev), mesh)]
+    local, step = FLAG.q1_local_step(), FLAG.q1_distributed_step(mesh)
+    return {
+        "shard_map_noop": median_ms(lambda: parallel.shard_map(lambda: None, [()] * n_dev, mesh)),
+        "all_sum_round": median_ms(rounds("all_sum", 20), 20),
+        "all_to_all_round": median_ms(rounds("all_to_all", 10), 10),
+        "q1_local_step_sharded": median_ms(lambda: parallel.shard_map(local, shards, mesh)),
+        "q1_distributed_step": median_ms(lambda: step(*args)),
+    }
+
+
+def mesh_programs(spans: list) -> list:
+    """The fused programs' (eager estimate, measured peak) from their
+    DeviceExecute spans."""
+    return [(int(s["attrs"].get("hbm_est_bytes", 0)), int(s["attrs"].get("hbm_peak_bytes", 0)))
+            for s in spans if s["name"] == "DeviceExecute"
+            and s["attrs"].get("program") == "fused"]
+
+
+def check_mesh_memory(label: str, programs: list, on_card: bool, tag: str) -> None:
+    """Every mesh program's eager estimate at or above its measured peak
+    (programs of at least 1 MB; ESTIMATE_MISSES fails the run)."""
+    if not programs:
+        raise AssertionError(f"mesh {label}: no fused program ran")
+    for est, peak in programs:
+        if on_card and max(est, peak) >= 1 << 20 and peak > est:
+            ESTIMATE_MISSES.append((f"mesh {label}", est, peak))
+    print(f"mesh {label}: fused programs (eager estimate, measured peak) {programs} [{tag}]",
+          flush=True)
+
+
+def run_mesh_phase(device: str, tables: dict, sf: float, tag: str, refs: tuple,
+                   one_device: dict, flagship_rows: int) -> dict:
+    """The mesh phase: (1) the flagship; (2) q1, q3, q5 and q12 standalone
+    on a mesh of MESH_SHARDS shards, cold then warm, beside the one-device
+    walls of the slice (``one_device``: its records); (3) a scheduler with
+    one torch executor on that mesh: MESH_AGG_SQL, MESH_JOIN_SQL and q5
+    promoted, MESH_JOIN_SQL as one megastage, MESH_AGG_SQL demoted by an
+    injected collective fault. Returns {("mesh", query, run): record}."""
+    from ballista_tpu_torch import parallel
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.client.standalone import start_standalone_cluster
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import torch_engine as TE
+
+    exact, want = refs
+    on_card = device.startswith("cuda")
+    out = {}
+    t_phase = time.time()
+    run_flagship(device, flagship_rows, tag)
+    prev = parallel.force_mesh_shards(MESH_SHARDS)
+    try:
+        # (2) standalone on the mesh
+        ctx = BallistaContext.standalone(device=device)
+        for name, location in tables.items():
+            ctx.register_parquet(name, location)
+        TE.clear_caches()
+        for q in MESH_QUERIES:
+            sql, expect = want[q]
+            for run in ("cold", "warm"):
+                r = run_counted(ctx, sql)
+                m = r["metrics"]
+                check_result(r["table"], expect, exact[q], q, r["presums"])
+                fused = tuple(int(m.get(k, 0.0)) for k in FUSED_KEYS)
+                if fused != expected_fused("default", q, sf):
+                    raise AssertionError(f"mesh {q} {run}: fused/joins/declined {fused}")
+                if m.get("op.HostFallback.count", 0.0):
+                    raise AssertionError(f"mesh {q} {run}: {m['op.HostFallback.count']:g} "
+                                         "host fallbacks")
+                if r["launches"] != r["small_k_stages"]:
+                    raise AssertionError(f"mesh {q} {run}: {r['launches']} grouped_sums "
+                                         f"launches in {r['small_k_stages']} aggregates")
+                if q == "q1" and r["launches"] != CALLS_PER_SHARD * MESH_SHARDS:
+                    raise AssertionError(f"mesh q1 {run}: {r['launches']} launches, want "
+                                         f"{CALLS_PER_SHARD * MESH_SHARDS}")
+                programs = mesh_programs(ctx.last_trace_spans)
+                check_mesh_memory(f"{q} {run}", programs, on_card, tag)
+                one = one_device.get(("default", q, run))
+                print(f"mesh {q} {run}: wall {r['wall']:.3f} s on {MESH_SHARDS} shards "
+                      f"(one device: {one['wall'] if one else float('nan'):.3f} s), device "
+                      f"programs {m.get('op.DeviceExecute.count', 0.0):g}, fused {fused}, "
+                      f"grouped_sums launches {r['launches']}, host fallbacks 0 [{tag}]",
+                      flush=True)
+                out[("mesh", q, run)] = r
+
+        # (3) the scheduler with one fat torch executor on the mesh
+        work = os.path.join(DATA_DIR, "mesh")
+        shutil.rmtree(work, ignore_errors=True)
+        cluster = start_standalone_cluster(n_executors=1, task_slots=2, device=device,
+                                           work_dir=work)
+        try:
+            def remote(settings):
+                c = BallistaContext.remote("127.0.0.1", cluster.scheduler_port)
+                c.config = BallistaConfig(settings)
+                for name, location in tables.items():
+                    c.register_parquet(name, location)
+                return c
+
+            def job(c, sql):
+                t0 = time.time()
+                table = c.sql(sql).collect()
+                wall = time.time() - t0
+                g = cluster.scheduler.tasks.get_job(c.last_job_id)
+                return table, wall, g, job_summary(g), cluster.scheduler.traces.get(c.last_job_id)
+
+            host = BallistaContext.standalone(backend="numpy")
+            for name, location in tables.items():
+                host.register_parquet(name, location)
+            cases = (("agg", MESH_AGG_SQL, {}), ("join", MESH_JOIN_SQL,
+                     dict(PARTITIONED, **{"ballista.engine.megastage": "false"})),
+                     ("q5", want["q5"][0], dict(PARTITIONED, **{"ballista.engine.megastage":
+                                                                 "false"})),
+                     ("megastage", MESH_JOIN_SQL, dict(PARTITIONED)))
+            for label, sql, settings in cases:
+                flight, f_wall, _, f_job, _ = job(
+                    remote(dict(settings, **{"ballista.shuffle.ici": "false"})), sql)
+                with counting() as rec:
+                    table, wall, g, summary, spans = job(remote(settings), sql)
+                if label == "q5":
+                    check_result(table, want["q5"][1], exact["q5"], "q5", rec["presums"])
+                elif not table.equals(flight):
+                    raise AssertionError(f"mesh cluster {label}: rows differ from the Flight "
+                                         "tier's")
+                else:
+                    check_same_as_host(label, table, host.sql(sql).collect())
+                check_job(f"mesh {label}", summary)
+                ici = summary["metrics"].get("op.IciExchange.count", 0.0)
+                if g.ici_promoted < 1 or ici <= 0 or summary["stages"] >= f_job["stages"]:
+                    raise AssertionError(f"mesh cluster {label}: promoted {g.ici_promoted}, "
+                                         f"op.IciExchange.count {ici}, stages "
+                                         f"{summary['stages']} vs {f_job['stages']}")
+                fused_spans = mesh_programs(spans)
+                if label == "megastage":
+                    ms = [s for s in g.stages.values()
+                          if s.stage_metrics.get("op.Megastage.count", 0) >= 1]
+                    if g.megastage_promoted != 1 or len(ms) != 1 or len(fused_spans) != 1:
+                        raise AssertionError(f"mesh megastage: promoted {g.megastage_promoted}, "
+                                             f"stages {len(ms)}, programs {len(fused_spans)}")
+                if on_card and rec["launches"] != summary["calls"]:
+                    raise AssertionError(f"mesh cluster {label}: {rec['launches']} launches, "
+                                         f"the tasks report {summary['calls']} calls")
+                print(f"mesh cluster {label}: wall {wall:.3f} s in {summary['stages']} stages "
+                      f"(Flight tier: {f_wall:.3f} s in {f_job['stages']}), promoted "
+                      f"{g.ici_promoted}, megastage {g.megastage_promoted}, "
+                      f"op.IciExchange.count {ici:g}, bytes_hbm "
+                      f"{summary['metrics'].get('op.IciExchange.bytes_hbm', 0.0):g}, fused "
+                      f"programs (eager estimate, peak) {fused_spans}, grouped_sums launches "
+                      f"{rec['launches']} [{tag}]", flush=True)
+                out[("mesh", f"cluster-{label}", "once")] = {
+                    "table": table, "wall": wall, "launches": rec["launches"],
+                    "shapes": rec["shapes"], "presums": rec["presums"],
+                    "metrics": summary["metrics"]}
+            # an injected collective fault demotes the promoted aggregate
+            clean_stages = job(remote({}), MESH_AGG_SQL)[3]["stages"]
+            table, wall, g, summary, _ = job(remote({"ballista.faults.schedule": ICI_FAULT}),
+                                             MESH_AGG_SQL)
+            check_same_as_host("fault", table, host.sql(MESH_AGG_SQL).collect())
+            if (summary["stages"] != clean_stages + 1 or g.ici_promoted != 1
+                    or summary["metrics"].get("op.IciExchange.count")):
+                raise AssertionError(f"mesh fault: stages {summary['stages']} vs {clean_stages}"
+                                     f", promoted {g.ici_promoted}, collectives "
+                                     f"{summary['metrics'].get('op.IciExchange.count')}")
+            print(f"mesh cluster fault ({ICI_FAULT}): demoted onto the Flight tier, rows exact, "
+                  f"{summary['stages']} stages (promoted: {clean_stages}), wall {wall:.3f} s "
+                  f"[{tag}]", flush=True)
+        finally:
+            cluster.stop()
+    finally:
+        parallel.force_mesh_shards(prev)
+    print(f"mesh phase {time.time() - t_phase:.1f} s [{tag}]", flush=True)
+    return out
+
+
+def check_same_as_host(label: str, got, host) -> None:
+    """Ints and strings equal to the host engine's, floats within 1e-6
+    relative (it sums decimals in f64)."""
+    for name in got.schema.names:
+        g = got.column(name).to_numpy(zero_copy_only=False)
+        h = host.column(name).to_numpy(zero_copy_only=False)
+        ok = np.allclose(g, h, rtol=1e-6, atol=0) if g.dtype.kind == "f" else \
+            np.array_equal(g, h)
+        if not ok or len(g) == 0:
+            raise AssertionError(f"mesh {label}.{name}: {g.tolist()} vs host {h.tolist()}")
+
+
 def profile_run(ctx, sql: str, owners: dict = None, work=None) -> dict:
     """One run (``ctx.sql(sql).collect()``, or ``work()`` when it is
     given) under torch.profiler: its wall, the device busy time in it
@@ -2128,8 +2444,8 @@ def report_runs(results: dict, prof: dict, card: str) -> None:
 
 
 def rehearse(data_dir: str, parts: int = 2) -> None:
-    """The hash, slice, windows, staged, distributed and surfaces phases on
-    the CPU over the TPC-H tables under
+    """The hash, slice, windows, staged, distributed, surfaces and mesh
+    phases on the CPU over the TPC-H tables under
     ``data_dir`` (the tests' SF 0.01, ``parts`` files per large table:
     ``tests/.data/torch_tpch_sf001``):
 
@@ -2156,6 +2472,7 @@ def rehearse(data_dir: str, parts: int = 2) -> None:
         results.update(run_staged_phase("cpu", tables, "cpu", refs, small=True)[0])
         results.update(run_distributed_phase("cpu", tables, "cpu", refs))
         results.update(run_surfaces_phase("cpu", tables, "cpu", refs))
+        results.update(run_mesh_phase("cpu", tables, 0.01, "cpu", refs, results, 1 << 16))
     finally:
         GS.grouped_sums_multi = real
     report_runs(results, {}, "cpu")
@@ -2224,6 +2541,9 @@ def main() -> int:
 
     phase("surfaces")
     results.update(run_surfaces_phase("cuda", tables, card, refs))
+
+    phase("mesh")
+    results.update(run_mesh_phase("cuda", tables, SF, card, refs, results, 1 << 23))
     report_runs(results, prof, card)
     if ESTIMATE_MISSES:
         for miss in ESTIMATE_MISSES:

@@ -635,3 +635,185 @@ def test_two_executors_on_card_run_q1_with_launches_counted(card, sf001_tables, 
         cluster.stop()
     _assert_rows_match(got, want, {n for n in got.column_names if n.startswith("avg")})
     assert launches == calls > 0
+
+
+def test_exchange_on_four_shards_of_the_card_matches_one_shard(card):
+    """The hash exchange over four shards of the card (four threads and
+    streams, ``parallel.shard_map``) moves every valid row exactly as the
+    same exchange over four ``cpu`` shards does, bit for bit; ``dropped``
+    is one decision on every shard."""
+    from ballista_tpu_torch import parallel
+    from ballista_tpu_torch.parallel.ici import make_hash_exchange
+    from ballista_tpu_torch.parallel.mesh import build_mesh
+
+    n_dev, n = 4, 1 << 16
+    rng = np.random.default_rng(17)
+    k = rng.integers(-5000, 5000, 4 * n).astype(np.int64)
+    k[rng.random(4 * n) < 0.3] = 7
+    arrays = {"k": k, "v": rng.standard_normal(4 * n), "b": rng.random(4 * n) < 0.5}
+    valid = rng.random(4 * n) < 0.8
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        mesh = build_mesh(n_dev, dev)
+        for cap_factor in (0, 4):
+            ex = make_hash_exchange(n_dev, cap_factor)
+            shard_args = [({c: torch.from_numpy(a[r * n:(r + 1) * n]).to(mesh[r])
+                            for c, a in arrays.items()},
+                           torch.from_numpy(valid[r * n:(r + 1) * n]).to(mesh[r]))
+                          for r in range(n_dev)]
+            res = parallel.shard_map(lambda arrs, v, ex=ex: ex(arrs, v, ("k",)), shard_args,
+                                     mesh)
+            outs[dev, cap_factor] = (
+                {c: torch.cat([r[0][c].cpu() for r in res]) for c in arrays},
+                torch.cat([r[1].cpu() for r in res]), [int(r[2]) for r in res])
+    for cap_factor in (0, 4):
+        got, want = outs["cuda", cap_factor], outs["cpu", cap_factor]
+        assert torch.equal(got[1], want[1])
+        for c in arrays:
+            assert torch.equal(got[0][c].view(torch.uint8), want[0][c].view(torch.uint8)), c
+        assert got[2] == want[2] and len(set(got[2])) == 1
+    assert int(valid.sum()) == int(outs["cuda", 0][1].sum())
+
+
+def test_mesh_q1_on_card_matches_one_shard_and_counts_threaded_launches(card, sf001_tables):
+    """q1 fused over four shards of the card, cold and warm: the rows of the
+    one-shard run, and grouped_sums launched from the four shard threads, a
+    partial aggregate and a final merge each (8 launches), every one counted
+    in ``grouped_sums.launches`` and in the query thread's calls."""
+    from ballista_tpu_torch import parallel
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.engine import torch_engine as TE
+    from ballista_tpu_torch.ops import grouped_sums as GS
+    from ballista_tpu_torch.ops import kernels_torch as KT
+
+    with open(os.path.join(REPO, "benchmarks", "queries", "q1.sql")) as f:
+        sql = f.read()
+    one = BallistaContext.standalone()
+    for t, path in sf001_tables.items():
+        one.register_parquet(t, path)
+    want = one.sql(sql).collect()
+    prev = parallel.force_mesh_shards(4)
+    try:
+        ctx = BallistaContext.standalone()
+        for t, path in sf001_tables.items():
+            ctx.register_parquet(t, path)
+        TE.clear_caches()
+        for _run in ("cold", "warm"):
+            GS.launches = 0
+            calls = KT.grouped_sums_calls()
+            got = ctx.sql(sql).collect()
+            assert GS.launches == 8 and KT.grouped_sums_calls() - calls == 8
+            m = ctx.last_engine_metrics
+            assert m["op.FusedIciExchange.count"] == 16.0
+            assert m.get("op.HostFallback.count", 0.0) == 0.0
+            _assert_rows_match(got, want, {n for n in got.column_names if n.startswith("avg")})
+    finally:
+        parallel.force_mesh_shards(prev)
+
+
+def _megastage_case(n_li: int, n_ord: int, shards: int):
+    """A q3-class chain (a partitioned PK-FK join with an aggregate above
+    it) promoted to one megastage over ``shards`` shards, with integer
+    prices so that its sums are exact, and its rows from pandas."""
+    import pandas as pd
+
+    from ballista_tpu_torch.client.catalog import Catalog
+    from ballista_tpu_torch.config import BALLISTA_SHUFFLE_PARTITIONS, BallistaConfig
+    from ballista_tpu_torch.ops.batch import ColumnBatch
+    from ballista_tpu_torch.plan.optimizer import optimize
+    from ballista_tpu_torch.plan.physical_planner import PhysicalPlanner
+    from ballista_tpu_torch.scheduler.planner import promote_ici_exchanges, promote_megastage
+    from ballista_tpu_torch.sql.parser import parse_sql
+    from ballista_tpu_torch.sql.planner import SqlPlanner
+
+    rng = np.random.default_rng(23)
+    li = {"l_orderkey": rng.integers(0, n_ord, n_li).astype(np.int64),
+          "l_price": rng.integers(0, 1000, n_li).astype(np.int64)}
+    orders = {"o_orderkey": np.arange(n_ord, dtype=np.int64),
+              "o_prio": rng.integers(0, 5, n_ord).astype(np.int64)}
+    lb, ob = ColumnBatch.from_dict(li), ColumnBatch.from_dict(orders)
+    cat = Catalog()
+    cat.register_batches("li", [lb.slice(i * (n_li // 4), n_li // 4) for i in range(4)],
+                         lb.schema)
+    cat.register_batches("orders", [ob.slice(0, n_ord // 2), ob.slice(n_ord // 2, n_ord // 2)],
+                         ob.schema)
+    sql = ("select o_prio, count(*) as n, sum(l_price) as rev "
+           "from li join orders on l_orderkey = o_orderkey group by o_prio")
+    cfg = BallistaConfig({BALLISTA_SHUFFLE_PARTITIONS: str(shards),
+                          "ballista.optimizer.broadcast_rows_threshold": "0"})
+    plan = PhysicalPlanner(cat, cfg).plan(optimize(SqlPlanner(cat.schemas()).plan(parse_sql(sql))))
+    plan, n_ici = promote_ici_exchanges(plan, ici_devices=shards)
+    plan, n_ms = promote_megastage(plan, ici_devices=shards)
+    assert (n_ici, n_ms) == (2, 1)
+    joined = pd.DataFrame(li).merge(pd.DataFrame(orders), left_on="l_orderkey",
+                                    right_on="o_orderkey")
+    want = joined.groupby("o_prio").agg(n=("l_price", "size"), rev=("l_price", "sum"))
+    return plan, want.reset_index()
+
+
+def test_megastage_on_card_exact_while_another_thread_writes_the_default_stream(
+        card, monkeypatch):
+    """A megastage over four shards of the card frees each shard's inputs
+    while that shard's kernels may still be queued. Its inputs are copied
+    on the shard's own stream, so that no other stream can be handed those
+    blocks: three runs stay exact while another thread allocates and
+    overwrites blocks on the card's default stream, as a fat executor's
+    second task slot does (blocks of every size the inputs take, held, so
+    that it is handed freed ones). A spin kernel queued on each shard's
+    stream ahead of the kernels that read its inputs holds them queued past
+    the release, so that a block handed to the default stream would be
+    overwritten before it is read. The engine's budget is the one the
+    scheduler plans with for a card registered with four shards."""
+    import threading
+
+    from ballista_tpu_torch import parallel
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import memory_model as MM
+    from ballista_tpu_torch.engine.engine import create_engine
+    from ballista_tpu_torch.ops import kernels_torch as KT
+    from ballista_tpu_torch.ops.batch import ColumnBatch
+
+    plan, want = _megastage_case(1 << 21, 1 << 18, 4)
+    real = KT.device_batch_from_encoded
+
+    def held(enc, arrays):
+        if threading.current_thread().name.startswith("mesh-shard-"):
+            # ~0.25 s on the shard's stream: longer than the host takes to
+            # queue the shard's body and reach the release
+            torch.cuda._sleep(500_000_000)
+        return real(enc, arrays)
+
+    monkeypatch.setattr(KT, "device_batch_from_encoded", held)
+    stop = threading.Event()
+
+    def scribble():
+        # blocks of every power-of-two size from 4 KB to 16 MB, held in
+        # rounds of about 1 GB so that a freed block of that size is taken
+        held = []
+        with torch.cuda.device(card):
+            while not stop.is_set():
+                held.extend(torch.full((1 << s,), 255, dtype=torch.uint8, device=card)
+                            for s in range(12, 25))
+                if len(held) > 13 * 32:
+                    held.clear()
+
+    prev = parallel.force_mesh_shards(4)
+    writer = threading.Thread(target=scribble, daemon=True)
+    writer.start()
+    try:
+        eng = create_engine("torch", BallistaConfig(), device="cuda")
+        name = torch.cuda.get_device_name(card)
+        if name in MM.DEVICE_MEMORY_BYTES:
+            assert eng._hbm_budget() == MM.budget_from_device_kinds({name}, 4)
+        for _ in range(3):
+            got = (ColumnBatch.concat(eng.execute_all(plan)).to_pandas()
+                   .sort_values("o_prio").reset_index(drop=True))
+            assert got["o_prio"].tolist() == want["o_prio"].tolist()
+            assert got["n"].tolist() == want["n"].tolist()
+            assert got["rev"].tolist() == want["rev"].tolist()
+        assert eng.op_metrics.get("op.Megastage.count", 0) >= 1
+        assert eng.op_metrics.get("op.Megastage.donated_bytes", 0) > 0
+    finally:
+        stop.set()
+        writer.join()
+        parallel.force_mesh_shards(prev)

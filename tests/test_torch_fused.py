@@ -92,8 +92,8 @@ def _jax_exchange(arrays, valid, n_dev, cap_factor, keys):
 
 class _ThreadWorld:
     """An in-process world of ``n_dev`` devices, one thread each:
-    ``all_to_all`` transposes the devices' send buffers, ``all_sum`` adds a
-    scalar over them."""
+    ``all_to_all`` transposes the devices' lists of send buffers,
+    ``all_sum`` adds a scalar over them."""
 
     def __init__(self, n_dev: int):
         self.n_dev = n_dev
@@ -111,8 +111,10 @@ class _ThreadWorld:
                 world.barrier.wait()
                 return got
 
-            def all_to_all(self, buf):
-                return torch.stack([peer[r] for peer in self._gather(buf)])
+            def all_to_all(self, bufs):
+                peers = self._gather(bufs)
+                return [torch.stack([peer[c][r] for peer in peers])
+                        for c in range(len(bufs))]
 
             def all_sum(self, x):
                 return sum(self._gather(x))
@@ -169,15 +171,20 @@ def test_hash_exchange_bit_identical_to_jax(n_dev, cap_factor, keys):
 
 
 def test_more_than_one_device_raises_without_a_process_group(torch_tpch_dir):
+    """An exchange over two shards has no collective outside a mesh program
+    (``parallel.shard_map``) and raises there; an engine over a mesh of two
+    runs q1 as one such program, with the one-device rows."""
     ctx = BallistaContext.standalone(device="cpu")
     ctx.register_parquet("lineitem", os.path.join(torch_tpch_dir, "lineitem"))
+    want = ctx.sql(_sql("q1")).collect()
     engine = TE.TorchEngine(ctx.config, device="cpu")
     engine.mesh_devices = 2
     ctx._get_engine = lambda: engine
-    with pytest.raises(ExecutionError, match="process group"):
-        ctx.sql(_sql("q1")).collect()
-    with pytest.raises(ExecutionError, match="process group"):
-        make_hash_exchange(2)
+    assert ctx.sql(_sql("q1")).collect().equals(want)
+    assert ctx.last_engine_metrics["op.FusedIciExchange.count"] == 16
+    exchange = make_hash_exchange(2)
+    with pytest.raises(ExecutionError, match="only inside a mesh program"):
+        exchange({"k": torch.arange(4)}, torch.ones(4, dtype=torch.bool), ("k",))
 
 
 # ---- TPC-H against the JAX engine ------------------------------------------------------

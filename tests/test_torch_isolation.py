@@ -75,6 +75,9 @@ def test_no_jax_or_reference_imports_and_all_port_imports_resolve():
     assert {"obs/explain.py", "obs/perfetto.py", "scheduler/api.py", "scheduler/ui.py",
             "scheduler/graph_dot.py", "scheduler/scale.py", "client/cli.py",
             "client/functions.py", "pyballista.py"} <= files
+    # and the device mesh's modules
+    assert {"parallel/flagship.py", "parallel/mesh.py", "parallel/ici.py",
+            "engine/megastage.py"} <= files
     bad = []
     for path in _port_sources():
         rel = os.path.relpath(path, REPO)
@@ -208,6 +211,20 @@ import ballista_tpu_torch.pyballista, ballista_tpu_torch.scheduler.api
 import ballista_tpu_torch.scheduler.graph_dot, ballista_tpu_torch.scheduler.scale
 import ballista_tpu_torch.scheduler.ui, ballista_tpu_torch.obs.perfetto
 print("EXPLAIN", len(ctx.last_trace_spans))
+
+# q1 fused over a mesh of two shards on the CPU: one program, two threads
+from ballista_tpu_torch import parallel
+prev = parallel.force_mesh_shards(2)
+try:
+    mctx = BallistaContext.standalone(device="cpu")
+    for t in TPCH_TABLES:
+        mctx.register_parquet(t, os.path.join({data!r}, t))
+    assert mctx.sql(q1).collect().equals(out)
+    mm = mctx.last_engine_metrics
+    assert mm["op.FusedIciExchange.count"] > 0 and "op.FusedDeclined.count" not in mm, mm
+finally:
+    parallel.force_mesh_shards(prev)
+print("MESH", 2)
 assert not any(k == "jax" or k.startswith(("jax.", "ballista_tpu."))
                for k, v in sys.modules.items() if v is not None)
 """
@@ -217,8 +234,9 @@ def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     """q1, a device window, a paged q3 join, q1 and a streamed final
     aggregate stage by stage through shuffle files, q1 through the port's
     scheduler and two executors by the remote client, EXPLAIN VERIFY and
-    ANALYZE of q1, and the REST API, scale controller, CLI and shim
-    modules, with JAX and the JAX package unimportable."""
+    ANALYZE of q1, the REST API, scale controller, CLI and shim modules,
+    and q1 fused over a mesh of two shards, with JAX and the JAX package
+    unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", _Q1_BLOCKED.format(repo=REPO, data=torch_tpch_dir)],
@@ -226,7 +244,7 @@ def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ROWS 4" in proc.stdout and "PAGED" in proc.stdout and "STAGED" in proc.stdout
-    assert "REMOTE" in proc.stdout and "EXPLAIN" in proc.stdout
+    assert "REMOTE" in proc.stdout and "EXPLAIN" in proc.stdout and "MESH 2" in proc.stdout
 
 
 def test_standalone_defaults_to_cuda_and_raises_without_it():
