@@ -44,6 +44,12 @@ BALLISTA_TPU_NATIVE_DTYPES = "ballista.tpu.native_dtypes"
 BALLISTA_TPU_PALLAS_SEGSUM = "ballista.tpu.pallas_segsum"
 BALLISTA_EXCHANGE_SPILL_ROWS = "ballista.exchange.spill_rows"
 BALLISTA_TPU_FUSE_INPUT_MAX_ROWS = "ballista.tpu.fuse_input_max_rows"
+# a gang launch onto a mesh group (set by the scheduler on the launch's
+# props; parallel/multihost.py), and the collectives' timeout (session)
+BALLISTA_TPU_MESH_GROUP_TAG = "ballista.tpu.mesh_group.tag"
+BALLISTA_TPU_MESH_GROUP_SIZE = "ballista.tpu.mesh_group.size"
+BALLISTA_TPU_MESH_GROUP_PROCESS_ID = "ballista.tpu.mesh_group.process_id"
+BALLISTA_TPU_MESH_GROUP_TIMEOUT_MS = "ballista.tpu.mesh_group.timeout_ms"
 BALLISTA_AGG_SPILL_STATE_ROWS = "ballista.agg.spill_state_rows"
 BALLISTA_BROADCAST_ROWS_THRESHOLD = "ballista.optimizer.broadcast_rows_threshold"
 # streaming shuffle ingest (bounded-memory consumers; shuffle_reader.rs:136)
@@ -802,6 +808,26 @@ _ENTRIES: dict[str, _Entry] = {
             True,
         ),
         _Entry(
+            BALLISTA_TPU_MESH_GROUP_TAG,
+            "set by the scheduler on a gang launch: the attempt's tag (job, "
+            "stage, attempt), which names the mesh group's rendezvous; the "
+            "stage's collectives then run across the group",
+            str,
+            "",
+        ),
+        _Entry(BALLISTA_TPU_MESH_GROUP_SIZE,
+               "set by the scheduler on a gang launch: the mesh group's size", int, 0),
+        _Entry(BALLISTA_TPU_MESH_GROUP_PROCESS_ID,
+               "set by the scheduler on a gang launch: the member's process id", int, 0),
+        _Entry(
+            BALLISTA_TPU_MESH_GROUP_TIMEOUT_MS,
+            "how long a mesh group member waits for its peers at a gang "
+            "stage's rendezvous and in each cross-process exchange before the "
+            "stage fails and restarts",
+            int,
+            120_000,
+        ),
+        _Entry(
             BALLISTA_TPU_FUSED_INPUT_ON_HOST,
             "materialize fused-exchange inputs with host kernels instead of "
             "device stages (avoids fetching intermediates back through a "
@@ -1013,14 +1039,13 @@ class ExecutorConfig:
     # refuses to start without; "cpu" runs the torch engine on the host
     device: Optional[str] = None
     advertise_host: Optional[str] = None
-    # mesh-group membership (multi-host slice): executors sharing one
-    # collective group; fused stages gang-schedule across the group. Not
-    # ported yet: an executor given a mesh group refuses to start
+    # mesh-group membership (parallel/multihost.py): executor processes
+    # sharing one collective group; fused stages gang-schedule across it
     mesh_group_id: Optional[str] = None
-    mesh_group_coordinator: Optional[str] = None  # host:port of process 0
+    mesh_group_coordinator: Optional[str] = None  # host:port of process 0's store
     mesh_group_size: int = 0
     mesh_group_process_id: int = 0
-    mesh_group_local_devices: Optional[int] = None  # virtual CPU dev override
+    mesh_group_local_devices: Optional[int] = None  # this process's shard count
     # HA: fallback scheduler addresses ("host:port"); on repeated RPC failure
     # the executor rotates to the next one and re-registers
     scheduler_addrs: Optional[list[str]] = None

@@ -24,6 +24,11 @@ query reads its input from the devices and runs one program. The JAX
 package's compile cache and compile-service path have no counterpart (eager
 PyTorch compiles nothing).
 
+The per-shard bodies (``make_aggregate_dev_fn``, ``make_join_dev_fn``),
+their estimates and ``_run_mesh`` also run a mesh group's programs
+(``parallel/multihost.py``): there the input is each member's own, already
+encoded under the group's agreed layout, and the exchange spans the group.
+
 A scheduler-promoted exchange (``IciExchangeExec``) that ran as a collective
 is accounted in ``op.IciExchange.{count,bytes_hbm,collective_time_s}``. Each
 program records one ``DeviceExecute`` span (``program="fused"``) with its
@@ -46,11 +51,14 @@ from ballista_tpu_torch.config import (
 )
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine import torch_engine as TE
+from ballista_tpu_torch.ops import grouped_sums as GS
 from ballista_tpu_torch.ops import kernels_np as KNP
 from ballista_tpu_torch.ops import kernels_torch as KT
 from ballista_tpu_torch.ops.batch import ColumnBatch
 from ballista_tpu_torch.ops.eval_np import evaluate
-from ballista_tpu_torch.parallel import collective_for, shard_map, split_rows
+from ballista_tpu_torch.parallel import (
+    COLLECTIVE_TIMEOUT_S, collective_for, shard_map, split_rows,
+)
 from ballista_tpu_torch.parallel.ici import make_hash_exchange
 from ballista_tpu_torch.plan import physical as P
 
@@ -164,15 +172,18 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _run_mesh(engine, fns: list, shard_args: list, mesh: list, rows: int, estimate):
+def _run_mesh(engine, fns: list, shard_args: list, mesh: list, rows: int, estimate,
+              group=None, timeout: float = COLLECTIVE_TIMEOUT_S):
     """Run a fused program, synchronized, as one device execute over
     ``rows`` input rows: ``fns[i](*shard_args[i])`` on shard ``i`` through
     ``parallel.shard_map``, the shards' outputs concatenated in shard order
     on the engine's device. ``estimate(i)`` (called after the run, from what
-    shard ``i`` recorded) is that shard's eager estimate. Returns (outputs,
-    seconds). The shard threads' grouped_sums calls count on this thread;
-    its ``DeviceExecute`` span (``program="fused"``) keeps the spans one to
-    one with ``op.DeviceExecute.count``."""
+    shard ``i`` recorded) is that shard's eager estimate. With ``group`` (a
+    mesh group's transport) ``mesh`` is this process's part of the group's
+    mesh and the collectives span the group. Returns (outputs, seconds).
+    The shard threads' grouped_sums calls count on this thread; its
+    ``DeviceExecute`` span (``program="fused"``) keeps the spans one to one
+    with ``op.DeviceExecute.count``."""
     cards = sorted({d for d in mesh if d.type == "cuda"}, key=str)
     # the program's tensor arguments on each card (a megastage's shards copy
     # theirs inside the program, where its peak sees them)
@@ -186,20 +197,24 @@ def _run_mesh(engine, fns: list, shard_args: list, mesh: list, rows: int, estima
         engine._metric_max("op.DevicePeak.max_bytes", MM.device_peak_bytes(c))
         torch.cuda.reset_peak_memory_stats(c)
         bases[c] = torch.cuda.memory_allocated(c)
-    calls = [0] * len(mesh)
+    records: list = [None] * len(mesh)
 
     def body(i, *arrays):
-        c0 = KT.grouped_sums_calls()
+        before = GS.thread_record()
         out = fns[i](*arrays)
-        calls[i] = KT.grouped_sums_calls() - c0
+        records[i] = GS.record_since(before)
         return out
 
     t0 = time.time()
-    outs = shard_map(body, [(i, *a) for i, a in enumerate(shard_args)], mesh)
+    outs = shard_map(body, [(i, *a) for i, a in enumerate(shard_args)], mesh, timeout, group)
+    if len(mesh) > 1 or group is not None:
+        # the bodies ran on the shard threads: their grouped_sums calls
+        # count on the caller's
+        for record in records:
+            GS.add_to_thread_record(record)
     if len(mesh) == 1:
         out = list(outs[0])
     else:
-        KT.count_grouped_sums_calls(sum(calls))
         out = [torch.cat([o[j].to(engine.device) for o in outs]) for j in range(len(outs[0]))]
     engine._sync()
     dt = time.time() - t0
@@ -278,18 +293,28 @@ def run_fused_aggregate(engine, final_plan: P.HashAggregateExec,
         return None
     holders = [{} for _ in mesh]
     fns = [make_aggregate_dev_fn(final_plan, partial_plan, enc, n_dev, h) for h in holders]
+    out, dt = _run_mesh(engine, fns, shard_args, mesh, enc.n_rows,
+                        aggregate_estimate(final_plan, partial_plan, enc, holders, n_dev))
+    _note_ici_metrics(engine, isinstance(final_plan.input, P.IciExchangeExec), holders[0], dt)
+    out_db = KT.device_batch_from_outputs(holders[0]["meta"], out, 0)
+    return _rest_empty(engine._fetch(out_db), final_plan.output_partitions())
+
+
+def aggregate_estimate(final_plan: P.HashAggregateExec, partial_plan: P.HashAggregateExec,
+                       enc: KT.EncodedBatch, holders: list, n_dev: int):
+    """``estimate(i)``: local shard ``i``'s eager bytes in a fused aggregate
+    over ``n_dev`` shards whose ``len(holders)`` local shards split ``enc``
+    (its partial aggregate over its rows, then the exchange and the final
+    merge of what ``n_dev`` shards send it)."""
     child = partial_plan.input
 
     def estimate(i):
-        host = split_rows(enc.arrays, n_dev)[i]
+        host = split_rows(enc.arrays, len(holders))[i]
         return (MM.estimate_eager_program_bytes(
                     partial_plan, {id(child): ("out", _shard_enc(enc, host), None, None, child)})
                 + _agg_tail_bytes(final_plan, partial_plan, holders[i]["partial_pad"], n_dev))
 
-    out, dt = _run_mesh(engine, fns, shard_args, mesh, enc.n_rows, estimate)
-    _note_ici_metrics(engine, isinstance(final_plan.input, P.IciExchangeExec), holders[0], dt)
-    out_db = KT.device_batch_from_outputs(holders[0]["meta"], out, 0)
-    return _rest_empty(engine._fetch(out_db), final_plan.output_partitions())
+    return estimate
 
 
 def make_aggregate_dev_fn(final_plan: P.HashAggregateExec, partial_plan: P.HashAggregateExec,
@@ -362,13 +387,18 @@ def _on_sig(join_plan: P.HashJoinExec) -> tuple:
 
 
 def _join_bytes(lenc: KT.EncodedBatch, renc: KT.EncodedBatch, n_dev: int,
-                right_schema) -> int:
+                right_schema, n_local: Optional[int] = None) -> int:
     """A shard's eager bytes of the fused join: both sides' exchanges with
     their consumer (the build's sort, the probe), and the build columns
-    gathered onto every received probe row."""
+    gathered onto every received probe row. The encodings hold the rows of
+    ``n_local`` of the mesh's ``n_dev`` shards (default: all of them; a mesh
+    group's member holds its own shards' only), so the mesh's rows are
+    theirs times ``n_dev / n_local``."""
+    scale = n_dev // (n_local or n_dev)
+    lrows, rrows = lenc.n_pad * scale, renc.n_pad * scale
     return (MM.estimate_eager_megastage_bytes(
-                [[(lenc.schema, lenc.n_pad), (renc.schema, renc.n_pad)]], n_dev)
-            + lenc.n_pad * (MM.row_data_bytes(right_schema) + 1))
+                [[(lenc.schema, lrows), (renc.schema, rrows)]], n_dev)
+            + lrows * (MM.row_data_bytes(right_schema) + 1))
 
 
 def run_fused_join(engine, join_plan: P.HashJoinExec, n_dev: int):
@@ -395,15 +425,9 @@ def run_fused_join(engine, join_plan: P.HashJoinExec, n_dev: int):
 
     holders = [{} for _ in mesh]
     fns = [make_join_dev_fn(join_plan, lenc, renc, n_dev, h) for h in holders]
-    largs = split_rows(lenc.arrays, n_dev)
-    rargs = split_rows(renc.arrays, n_dev)
-
-    def estimate(i):
-        return (sum(a.nbytes for a in largs[i] + rargs[i])
-                + _join_bytes(lenc, renc, n_dev, join_plan.right.schema()))
-
     out, dt = _run_mesh(engine, fns, [ld + rd for ld, rd in zip(ldev, rdev)], mesh,
-                        lenc.n_rows + renc.n_rows, estimate)
+                        lenc.n_rows + renc.n_rows,
+                        join_estimate(join_plan, lenc, renc, n_dev, n_dev))
     result = _finish_fused(engine, holders[0], out, join_plan.output_partitions())
     # rows past an exchange's capacity surface as None (the caller demotes a
     # promoted exchange): only a completed collective counts
@@ -411,6 +435,21 @@ def run_fused_join(engine, join_plan: P.HashJoinExec, n_dev: int):
         isinstance(join_plan.left, P.IciExchangeExec)
         or isinstance(join_plan.right, P.IciExchangeExec)), holders[0], dt)
     return result
+
+
+def join_estimate(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.EncodedBatch,
+                  n_local: int, n_dev: int):
+    """``estimate(i)``: local shard ``i``'s eager bytes in a fused join over
+    ``n_dev`` shards whose ``n_local`` local shards split ``lenc`` and
+    ``renc``: its inputs, and the exchanges and probe of ``_join_bytes``."""
+    largs = split_rows(lenc.arrays, n_local)
+    rargs = split_rows(renc.arrays, n_local)
+
+    def estimate(i):
+        return (sum(a.nbytes for a in largs[i] + rargs[i])
+                + _join_bytes(lenc, renc, n_dev, join_plan.right.schema(), n_local))
+
+    return estimate
 
 
 def make_join_dev_fn(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.EncodedBatch,
@@ -532,12 +571,19 @@ def make_join_body(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.En
     return body
 
 
-def _finish_fused(engine, holder: dict, out: list, n_parts: int) -> Optional[list[ColumnBatch]]:
-    """The program's rows, one batch per output partition; None when its
-    last output, the mesh's unfusable count, is non-zero (a host sync)."""
+def _fused_rows(engine, holder: dict, out: list) -> Optional[ColumnBatch]:
+    """The program's rows on the host; None when its last output, the
+    mesh's unfusable count, is non-zero (a host sync)."""
     if int(out[-1].sum()):
         # rows past an exchange's capacity, or repeated build keys: the
-        # result is incomplete, so the materialized exchange runs instead
+        # result is incomplete
         return None
     out_db = KT.device_batch_from_outputs(holder["meta"], list(out[:-1]), 0)
-    return _rest_empty(engine._fetch(out_db), n_parts)
+    return engine._fetch(out_db)
+
+
+def _finish_fused(engine, holder: dict, out: list, n_parts: int) -> Optional[list[ColumnBatch]]:
+    """The program's rows, one batch per output partition; None when the
+    result is incomplete (the materialized exchange runs instead)."""
+    rows = _fused_rows(engine, holder, out)
+    return None if rows is None else _rest_empty(rows, n_parts)

@@ -23,7 +23,14 @@ counted in ``op.FusedDeclined.count`` and the materialized exchange runs.
 An exchange the scheduler promoted onto the mesh (``IciExchangeExec``) or a
 chain it promoted whole (``MegastageExec``, ``engine/megastage.py``) is a
 contract instead: every decline raises ``IciDemoted`` naming its exchanges,
-and the scheduler splits them onto the Flight tier. Leaf encodings and their
+and the scheduler splits them onto the Flight tier. In a stage the scheduler
+gang-launched onto a mesh group (``ballista.tpu.mesh_group.tag``), the
+collectives ``gang_collectives`` finds run across the group's processes
+(``parallel/multihost.py``): each member materializes its share of the
+input partitions, enters the program with its peers and emits its slice
+under output partition == its process id; nothing declines locally (a
+refusal the members share raises ``GangUnfusable``, any other failure
+raises, and the scheduler restarts the stage). Leaf encodings and their
 device copies are cached across queries under content keys (scan files and
 their stamps, in-memory batch ids, the dtype policy; the device copies also
 under the engine's device), so a warm query re-reads no scan it has seen;
@@ -77,7 +84,9 @@ import torch
 from ballista_tpu_torch.config import (
     BALLISTA_ENGINE_PAGED_JOIN, BALLISTA_ENGINE_PAGED_JOIN_THRESHOLD,
     BALLISTA_ENGINE_PREFETCH_DEPTH, BALLISTA_SHUFFLE_COMPRESSION,
-    BALLISTA_TPU_FUSE_INPUT_MAX_ROWS, BALLISTA_TPU_ICI_SHUFFLE, BALLISTA_TPU_MIN_DEVICE_ROWS,
+    BALLISTA_TPU_FUSE_INPUT_MAX_ROWS, BALLISTA_TPU_ICI_SHUFFLE,
+    BALLISTA_TPU_MESH_GROUP_PROCESS_ID, BALLISTA_TPU_MESH_GROUP_SIZE, BALLISTA_TPU_MESH_GROUP_TAG,
+    BALLISTA_TPU_MESH_GROUP_TIMEOUT_MS, BALLISTA_TPU_MIN_DEVICE_ROWS,
     BALLISTA_TPU_NATIVE_DTYPES, BALLISTA_TPU_STREAM_DEVICE_ROWS, BallistaConfig,
 )
 from ballista_tpu_torch.engine import memory_model as MM
@@ -191,6 +200,10 @@ class TorchEngine(NumpyEngine):
         # the side stream prefetched chunks cross to the card on, made on
         # first use (see _pipelined_chunks)
         self._copy_stream: Optional[torch.cuda.Stream] = None
+        # in a gang-scheduled stage: the ids of the collective nodes that run
+        # across the mesh group, and of the stage root they were found from
+        self._gang_nodes: set = set()
+        self._gang_root: Optional[int] = None
         # the running stage's CompiledStage attrs (see _run_stage): its
         # estimate, measured peak and dictionary-coded columns
         self._last_hbm_est = 0
@@ -202,6 +215,19 @@ class TorchEngine(NumpyEngine):
     def _apply_dtype_policy(self) -> None:
         # module-level so trace-time literal/arith decisions see it
         KT.NATIVE_DTYPES = bool(self.config.get(BALLISTA_TPU_NATIVE_DTYPES))
+
+    def execute_partition(self, plan: P.PhysicalPlan, partition: int) -> ColumnBatch:
+        if self._gang_tag() and self._gang_root != id(plan):
+            # the stage's collectives across the mesh group, found once from
+            # the root every task of the stage executes
+            self._gang_nodes = {id(n) for n in gang_collectives(plan)}
+            self._gang_root = id(plan)
+        return super().execute_partition(plan, partition)
+
+    def _gang_tag(self) -> Optional[str]:
+        """The gang attempt's tag when the scheduler gang-launched this
+        stage onto a mesh group, else None."""
+        return self.config.settings().get(BALLISTA_TPU_MESH_GROUP_TAG) or None
 
     def execute_all(self, plan: P.PhysicalPlan) -> list[ColumnBatch]:
         # serial over partitions: one device, and the host thread pool of the
@@ -308,6 +334,8 @@ class TorchEngine(NumpyEngine):
         rep = plan.input
         if not isinstance(rep, P.RepartitionExec):
             return None
+        if id(plan) in self._gang_nodes:
+            return self._fused_exchange_multihost(plan, rep, rep.input, part)
         ici_ids = [rep.exchange_id] if isinstance(rep, P.IciExchangeExec) else None
         if not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
             return self._ici_demote(ici_ids, "engine ICI shuffle disabled")
@@ -331,6 +359,8 @@ class TorchEngine(NumpyEngine):
     def _try_fused_join(self, plan: P.HashJoinExec, part: int) -> Optional[ColumnBatch]:
         """A partitioned join over two exchanges as one program over the mesh
         (see fused_exchange.run_fused_join)."""
+        if id(plan) in self._gang_nodes:
+            return self._fused_join_multihost(plan, part)
         ici_ids = [s.exchange_id for s in (plan.left, plan.right)
                    if isinstance(s, P.IciExchangeExec)] or None
         if not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
@@ -347,6 +377,165 @@ class TorchEngine(NumpyEngine):
             id(plan), part, "op.FusedIciJoin.count", ici_ids,
             "collective join declined at runtime (skew overflow or non-unique build keys)",
             lambda: FX.run_fused_join(self, plan, self.mesh_devices))
+
+    # ---- gang-scheduled collectives across a mesh group ---------------------------
+    def _gang_gate(self, exchanges: list) -> tuple:
+        """(group, timeout in ms, row cap) of a collective in a gang stage,
+        or ``GangUnfusable`` when the engine's knob, the cap or the budget
+        refuses it. Every member decides alike: the plan, the session and
+        the group's agreed budget are the same in all of them, and a refusal
+        restarts the stage un-ganged rather than leave one member to a
+        local exchange while its peers wait in the collective."""
+        from ballista_tpu_torch.parallel import multihost
+
+        group = multihost.current_group()
+        if group is None:
+            raise ExecutionError("a gang-launched stage on an executor outside a mesh group")
+        launched = (int(self.config.get(BALLISTA_TPU_MESH_GROUP_SIZE)),
+                    int(self.config.get(BALLISTA_TPU_MESH_GROUP_PROCESS_ID)))
+        if launched != (group.size, group.process_id):
+            raise ExecutionError(f"gang launch for member {launched[1]} of {launched[0]} on "
+                                 f"member {group.process_id} of {group.size}")
+        if not self.config.get(BALLISTA_TPU_ICI_SHUFFLE):
+            raise multihost.GangUnfusable("engine ICI shuffle disabled")
+        if self._fuse_over_cap(max(x.est_rows for x in exchanges)):
+            raise multihost.GangUnfusable("input exceeds the fused-exchange cap")
+        budget = self._hbm_budget()
+        if budget > 0:
+            est = sum(MM.estimate_ici_exchange_bytes(x.schema(), x.est_rows, group.global_shards)
+                      for x in exchanges if x.est_rows)
+            if est > budget:
+                raise multihost.GangUnfusable(
+                    f"hbm_budget: exchange estimated {MM.fmt_bytes(est)}/shard over the "
+                    f"{MM.fmt_bytes(budget)} budget")
+        timeout_ms = int(self.config.get(BALLISTA_TPU_MESH_GROUP_TIMEOUT_MS))
+        cap = int(self.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
+        return group, timeout_ms, cap
+
+    def _gang_run(self, group, what: str, run) -> tuple:
+        """``run()`` of a collective and the cross-process exchange it made
+        (rounds, bytes, seconds, and the gang attempt's process group when
+        this program built it: setups, setup_s), also added to
+        ``op.MeshGroup.*``. A shape
+        the device cannot express (deterministic, so the same in every
+        member) raises ``GangUnfusable``, and every other failure raises as
+        it is: the scheduler restarts the whole gang stage."""
+        from ballista_tpu_torch.parallel import ShardFailed, multihost
+
+        with group.lock:
+            before = dict(group.stats)
+        try:
+            local = run()
+        except ShardFailed as err:
+            if isinstance(err.error, (_HostFallback, KT.DeviceUnsupported)):
+                raise multihost.GangUnfusable(f"{what} not expressible on device: "
+                                              f"{err.error}") from err
+            raise
+        except (_HostFallback, KT.DeviceUnsupported) as err:
+            raise multihost.GangUnfusable(f"{what} not expressible on device: {err}") from err
+        with group.lock:
+            moved = {k: group.stats[k] - before[k] for k in before}
+        self._metric("op.MeshGroup.rounds", moved["rounds"])
+        self._metric("op.MeshGroup.bytes", moved["bytes"])
+        self._metric("op.MeshGroup.time_s", moved["seconds"])
+        self._metric("op.MeshGroup.setup_s", moved["setup_s"])
+        self._metric_max("op.MeshGroup.shard_budget.max_bytes", group.shard_budget_bytes)
+        return local, moved
+
+    def _gang_slice(self, local: ColumnBatch, n_parts: int, pid: int) -> list:
+        """A member's slice under output partition ``pid``, the others
+        empty: the stage's readers union the members' slices."""
+        return [local if p == pid else ColumnBatch.empty(local.schema) for p in range(n_parts)]
+
+    def _gang_failure_kept(self, key, run):
+        """``run()``, or the failure it raised, kept for the stage's other
+        tasks on this engine: they raise it again at once instead of entering
+        the collective a second time, alone, while the stage restarts."""
+        try:
+            return run()
+        except Exception as err:  # noqa: BLE001 - kept, then raised again
+            self._fused[key] = err
+            raise
+
+    def _gang_result(self, key, part: int) -> ColumnBatch:
+        kept = self._fused[key]
+        if isinstance(kept, Exception):
+            raise kept
+        return kept[part]
+
+    def _fused_exchange_multihost(self, plan: P.HashAggregateExec, rep, partial,
+                                  part: int) -> ColumnBatch:
+        """The fused aggregate across the mesh group of a gang-scheduled
+        stage, run once per engine (the stage's tasks on this member share
+        it) by ``_gang_aggregate``."""
+        key = ("mh", id(plan))
+        if key not in self._fused:
+            self._fused[key] = self._gang_failure_kept(
+                key, lambda: self._gang_aggregate(plan, rep, partial))
+        return self._gang_result(key, part)
+
+    def _gang_aggregate(self, plan: P.HashAggregateExec, rep, partial) -> list:
+        """This member materializes only its share of the partial
+        aggregate's input partitions (partition i belongs to member i %
+        size), enters the collective program with its peers and emits its
+        slice under output partition == its process id (empties elsewhere)."""
+        import hashlib
+
+        from ballista_tpu_torch.parallel import multihost
+
+        group, timeout_ms, cap = self._gang_gate([rep])
+        size, pid = group.size, group.process_id
+        child = partial.input
+        mine = [self._exec(child, i) for i in range(child.output_partitions())
+                if i % size == pid]
+        disc = hashlib.sha1(plan.fingerprint().encode()).hexdigest()[:12]
+        local, moved = self._gang_run(
+            group, "aggregate", lambda: multihost.run_fused_aggregate_multihost(
+                plan, partial, mine, f"{self._gang_tag()}/a-{disc}", timeout_ms,
+                engine=self, max_rows=cap, attempt=self._gang_tag()))
+        self._metric("op.FusedMultiHostExchange.count", 1.0)
+        log.info("multihost fused aggregate: group=%s process=%d/%d local_rows=%d -> "
+                 "%d groups; exchange %d rounds, %d bytes, %.6f s over %s; process group "
+                 "set-up %.6f s", self._gang_tag(), pid, size, sum(b.num_rows for b in mine),
+                 local.num_rows, moved["rounds"], moved["bytes"], moved["seconds"],
+                 group.transport, moved["setup_s"])
+        return self._gang_slice(local, plan.output_partitions(), pid)
+
+    def _fused_join_multihost(self, plan: P.HashJoinExec, part: int) -> ColumnBatch:
+        """The fused partitioned join across the mesh group, run once per
+        engine by ``_gang_join``."""
+        key = ("mhj", id(plan))
+        if key not in self._fused:
+            self._fused[key] = self._gang_failure_kept(key, lambda: self._gang_join(plan))
+        return self._gang_result(key, part)
+
+    def _gang_join(self, plan: P.HashJoinExec) -> list:
+        """This member materializes its share of both join inputs, enters
+        the collective join with its peers, and emits its slice under output
+        partition == its process id. Its rendezvous tag comes from the
+        plan's fingerprint, the same in every member."""
+        import hashlib
+
+        from ballista_tpu_torch.parallel import multihost
+
+        group, timeout_ms, cap = self._gang_gate([plan.left, plan.right])
+        size, pid = group.size, group.process_id
+        mine_l = [self._exec(plan.left.input, i)
+                  for i in range(plan.left.input.output_partitions()) if i % size == pid]
+        mine_r = [self._exec(plan.right.input, i)
+                  for i in range(plan.right.input.output_partitions()) if i % size == pid]
+        disc = hashlib.sha1(plan.fingerprint().encode()).hexdigest()[:12]
+        local, moved = self._gang_run(
+            group, "join", lambda: multihost.run_fused_join_multihost(
+                plan, mine_l, mine_r, f"{self._gang_tag()}/j-{disc}", timeout_ms,
+                engine=self, max_rows=cap, attempt=self._gang_tag()))
+        self._metric("op.FusedMultiHostJoin.count", 1.0)
+        log.info("multihost fused join: group=%s process=%d/%d local_rows=%d/%d -> %d rows; "
+                 "exchange %d rounds, %d bytes, %.6f s over %s; process group set-up %.6f s",
+                 self._gang_tag(), pid, size, sum(b.num_rows for b in mine_l),
+                 sum(b.num_rows for b in mine_r), local.num_rows, moved["rounds"],
+                 moved["bytes"], moved["seconds"], group.transport, moved["setup_s"])
+        return self._gang_slice(local, plan.output_partitions(), pid)
 
     def _fused_part(self, key: int, part: int, metric: str, ici_ids, declined: str,
                     run) -> Optional[ColumnBatch]:
@@ -480,8 +669,15 @@ class TorchEngine(NumpyEngine):
         from the engine's card (a CPU engine probes nothing and has none),
         < 0 turns the governor off."""
         if self._hbm_budget_v is None:
+            from ballista_tpu_torch.parallel import multihost
+
             detected = 0
-            if self.device.type == "cuda":
+            group = multihost.current_group()
+            if group is not None and group.device == self.device:
+                # a card's budget is shared by every shard on it, of every
+                # member; the group plans against its least member's
+                detected = group.shard_budget_bytes
+            elif self.device.type == "cuda":
                 # a card's budget is shared by the mesh's shards on it
                 mesh = build_mesh(self.mesh_devices, self.device)
                 detected = MM.shard_budget_bytes(
@@ -1146,6 +1342,51 @@ def _fusable_partitioned_join(node: P.PhysicalPlan) -> bool:
         and isinstance(node.left, P.RepartitionExec)
         and isinstance(node.right, P.RepartitionExec)
     )
+
+
+# operators whose partition p reads only partition p of each child: a
+# collective under them still runs across the mesh group. A union is not
+# one: its partition p reads partition p - offset of one child, whose
+# collective slice another member may hold
+_PARTITION_WISE = (P.ShuffleWriterExec, P.FilterExec, P.ProjectExec, P.HashAggregateExec,
+                   P.SortExec, P.HashJoinExec)
+
+
+def gang_collectives(root: P.PhysicalPlan) -> list:
+    """The nodes of a gang-scheduled stage that run as one program across
+    its mesh group: final aggregates over a hash exchange of a
+    device-expressible partial aggregate, and partitioned inner, left, semi
+    and anti joins over two exchanges, each reached from the stage's root
+    through operators that read their children partition by partition (a
+    member computes only its partitions, and a collective leaves its slice
+    in one partition). Below an operator that reads other partitions than
+    its own (an exchange no collective consumes, a collected build side, a
+    cross join, a limit, a union) the subtree runs in each member alone, as
+    in an executor outside a group. The scheduler gangs a stage only when this
+    finds a collective, and the engine runs exactly these across the group."""
+    found: list = []
+
+    def walk(node: P.PhysicalPlan) -> None:
+        if (isinstance(node, P.HashAggregateExec) and node.mode == "final"
+                and type(node.input) is P.RepartitionExec
+                and isinstance(node.input.input, P.HashAggregateExec)
+                and node.input.input.mode == "partial" and _supported(node.input.input)):
+            found.append(node)
+            walk(node.input.input.input)
+        elif (_fusable_partitioned_join(node) and node.how in ("inner", "left", "semi", "anti")
+              and node.on and type(node.left) is P.RepartitionExec
+              and type(node.right) is P.RepartitionExec):
+            found.append(node)
+            walk(node.left.input)
+            walk(node.right.input)
+        elif isinstance(node, P.HashJoinExec) and node.collect_build:
+            walk(node.left)
+        elif isinstance(node, _PARTITION_WISE):
+            for c in node.children():
+                walk(c)
+
+    walk(root)
+    return found
 
 
 def _scan_of(batch: ColumnBatch) -> P.MemoryScanExec:

@@ -6,6 +6,11 @@ Reference analog: ``ballista-executor`` (``executor/src/bin/main.rs`` +
 ``--backend torch`` (the default) runs stages on ``--device``, ``cuda`` unless
 ``--device cpu`` is given; without CUDA the executor exits with status 2 and
 says why. ``--backend numpy`` runs the host engine.
+
+The ``--mesh-group-*`` flags make the executor a member of a mesh group
+(``parallel/multihost.py``): every member names the same group id, size and
+coordinator (host:port of the store that member 0 hosts), its own process
+id, and its shard count; the executor joins the group before it registers.
 """
 from __future__ import annotations
 
@@ -53,6 +58,19 @@ def main() -> None:
                    help="the torch engine's device (default cuda; 'cpu' runs "
                         "it on the host)")
     p.add_argument("--advertise-host", default=env("BALLISTA_EXECUTOR_ADVERTISE_HOST", None))
+    # mesh-group membership: executor processes whose fused stages run as one
+    # collective program across them (gang-scheduled by the scheduler)
+    p.add_argument("--mesh-group-id", default=env("BALLISTA_MESH_GROUP_ID", None))
+    p.add_argument("--mesh-group-coordinator",
+                   default=env("BALLISTA_MESH_GROUP_COORDINATOR", None),
+                   help="host:port of the group's store, hosted by process 0")
+    p.add_argument("--mesh-group-size", type=int,
+                   default=int(env("BALLISTA_MESH_GROUP_SIZE", "0")))
+    p.add_argument("--mesh-group-process-id", type=int,
+                   default=int(env("BALLISTA_MESH_GROUP_PROCESS_ID", "0")))
+    p.add_argument("--mesh-group-local-devices", type=int,
+                   default=int(env("BALLISTA_MESH_GROUP_LOCAL_DEVICES", "0")) or None,
+                   help="this process's shard count (default: one per visible card)")
     p.add_argument("--plugin-dir", default=env("BALLISTA_EXECUTOR_PLUGIN_DIR", None),
                    help="directory of UDF plugin modules loaded at startup "
                         "(reference: plugin_manager.rs startup scan)")
@@ -102,6 +120,11 @@ def main() -> None:
         backend=args.backend,
         device=args.device,
         advertise_host=args.advertise_host,
+        mesh_group_id=args.mesh_group_id,
+        mesh_group_coordinator=args.mesh_group_coordinator,
+        mesh_group_size=args.mesh_group_size,
+        mesh_group_process_id=args.mesh_group_process_id,
+        mesh_group_local_devices=args.mesh_group_local_devices,
         scheduler_addrs=args.scheduler_addrs.split(",") if args.scheduler_addrs else None,
     )
     from ballista_tpu_torch.utils.udf import load_plugins

@@ -10,7 +10,10 @@ else the executor's own): ``torch`` on the executor's device, or the host
 engine ``numpy``. Launch props may carry the scheduler's precompile hints
 (``ballista.precompile.hints``); eager torch compiles nothing ahead of
 a stage, so this executor ignores them. A torch task reports the
-grouped_sums calls it made (``op.GroupedSums.calls``) with its metrics.
+grouped_sums calls it made (``op.GroupedSums.calls``) and the kernel
+launches they took on the card (``op.GroupedSums.launches``, 0 on the CPU),
+its mesh programs' shard threads included, and those calls by shape
+(``op.GroupedSums.shape.<rows>x<k>x<columns>.<dtype>``), with its metrics.
 """
 from __future__ import annotations
 
@@ -138,7 +141,7 @@ class Executor:
                 props.get("ballista.executor.backend", self.backend) if props else self.backend
             )
             engine, stage_lock, plan = self._engine_for(plan, task, backend, config)
-            calls0 = _grouped_sums_calls() if backend == "torch" else None
+            gs0 = _grouped_sums_record() if backend == "torch" else None
             if rt.cancelled.is_set():
                 raise Cancelled(task.task_id)
             pid = task.partition.partition_id
@@ -221,8 +224,13 @@ class Executor:
             # prefetch threads may still insert keys while we harvest
             for k, v in dict(getattr(engine, "op_metrics", {})).items():
                 status.metrics[k] = v
-            if calls0 is not None:
-                status.metrics["op.GroupedSums.calls"] = float(_grouped_sums_calls() - calls0)
+            if gs0 is not None:
+                gs = _grouped_sums_record(gs0)
+                status.metrics["op.GroupedSums.calls"] = float(gs["calls"])
+                status.metrics["op.GroupedSums.launches"] = float(gs["launches"])
+                for (n, k, ncols, dtype), calls in gs["shapes"].items():
+                    name = str(dtype).replace("torch.", "")
+                    status.metrics[f"op.GroupedSums.shape.{n}x{k}x{ncols}.{name}"] = float(calls)
             self.metrics_collector.record_stage(
                 task.partition.job_id, task.partition.stage_id,
                 task.partition.partition_id, dict(status.metrics),
@@ -415,9 +423,10 @@ def _dir_bytes(path: str) -> int:
     return total
 
 
-def _grouped_sums_calls() -> int:
-    """grouped_sums calls made so far on this thread (a task's engine runs
-    its stages on the task's thread)."""
-    from ballista_tpu_torch.ops.kernels_torch import grouped_sums_calls
+def _grouped_sums_record(before: Optional[dict] = None) -> dict:
+    """This thread's grouped_sums record (``grouped_sums.thread_record``: a
+    task's engine runs its stages on the task's thread, and its mesh
+    programs add their shard threads'), or what it gained since ``before``."""
+    from ballista_tpu_torch.ops import grouped_sums as GS
 
-    return grouped_sums_calls()
+    return GS.thread_record() if before is None else GS.record_since(before)

@@ -21,8 +21,12 @@ names another, and refuses to start when CUDA is asked for and missing; its
 fused and promoted programs run over the process's mesh of shards
 (``parallel``), one host thread a shard. It registers the mesh's shard count
 and the card's name as its device kind, which the scheduler maps to the
-card's memory budget at admission. Mesh groups (executors in several
-processes sharing one collective program) are not ported yet.
+card's memory budget at admission. An executor in a mesh group
+(``parallel/multihost.py``) joins the group in ``start()``, before any
+device use and before it registers; the scheduler then gang-schedules fused
+stages onto the complete group, and each member registers its card's shard
+count over the whole group, so admission splits the card's budget as the
+members' engines do.
 """
 from __future__ import annotations
 
@@ -75,9 +79,14 @@ class ExecutorProcess:
                 f"executor backend {self.config.backend!r}: torch or numpy"
             )
         if self.config.mesh_group_id:
-            raise BallistaError(
-                "mesh groups are not ported to ballista_tpu_torch yet"
-            )
+            c = self.config
+            if (self.config.backend != "torch" or not c.mesh_group_coordinator
+                    or c.mesh_group_size < 2
+                    or not 0 <= c.mesh_group_process_id < c.mesh_group_size):
+                raise BallistaError(
+                    f"mesh group {c.mesh_group_id!r} needs the torch backend, a "
+                    "coordinator, a size of at least 2 and a process id below it"
+                )
         if self.config.backend == "torch":
             from ballista_tpu_torch.engine.torch_engine import resolve_device
 
@@ -269,6 +278,19 @@ class ExecutorProcess:
 
     # ---- lifecycle ----------------------------------------------------------------------
     def start(self) -> None:
+        if self.config.mesh_group_id:
+            # the group forms before any device use and before registration:
+            # the scheduler sees only members of a group that has joined
+            from ballista_tpu_torch.parallel import multihost
+
+            c = self.config
+            log.info("executor %s joining mesh group %s (%d/%d) via %s", self.executor_id,
+                     c.mesh_group_id, c.mesh_group_process_id, c.mesh_group_size,
+                     c.mesh_group_coordinator)
+            multihost.init_mesh_group(c.mesh_group_coordinator, c.mesh_group_size,
+                                      c.mesh_group_process_id,
+                                      local_devices=c.mesh_group_local_devices,
+                                      device=c.device)
         self.flight = ShuffleFlightServer(
             "0.0.0.0", self.config.flight_port, self.work_dir,
             on_serve=self._note_served_path,
@@ -630,15 +652,19 @@ def _device_inventory(backend: str, device: Optional[str]) -> tuple[int, str, st
     ``len(jax.devices())``; a mesh of 2 or more lets the scheduler promote
     exchanges and whole chains onto it. The mesh shape (``"CxS"``,
     ``parallel.mesh.mesh_shape``) tells the scheduler how many shards share
-    a card, so that it splits the card's budget as the engine does. A host
-    (numpy) executor reports no device."""
+    a card, so that it splits the card's budget as the engine does; a mesh
+    group's member counts every member's shards on its cards
+    (``MeshGroup.mesh_shape``). A host (numpy) executor reports no device."""
     if backend != "torch" or device is None:
         return (0, "cpu", "")
     import torch
 
+    from ballista_tpu_torch.parallel import multihost
     from ballista_tpu_torch.parallel.mesh import build_mesh, mesh_shape
 
     mesh = build_mesh(None, device)
     kind = torch.cuda.get_device_name(torch.device(device)) if device.startswith("cuda") \
         else "cpu"
-    return (len(mesh), kind, mesh_shape(mesh))
+    group = multihost.current_group()
+    shape = group.mesh_shape() if group is not None else mesh_shape(mesh)
+    return (len(mesh), kind, shape)

@@ -43,6 +43,38 @@ WORKSPACE_BYTES = 1 << 20
 # launch concurrently, so each increment holds the lock
 launches = 0
 _launches_lock = threading.Lock()
+# each thread's record of its calls, the launches they took and its calls
+# by shape (an executor reports a task's share; a mesh program adds its
+# shard threads' records to its caller's)
+_thread = threading.local()
+
+
+def thread_record() -> dict:
+    """What this thread has called so far, and what was added to it:
+    ``{"calls": n, "launches": n, "shapes": {(rows, k, columns, dtype):
+    calls}}``; ``launches`` and ``shapes`` count the calls on a card only."""
+    return {"calls": getattr(_thread, "calls", 0), "launches": getattr(_thread, "launches", 0),
+            "shapes": dict(getattr(_thread, "shapes", {}))}
+
+
+def record_since(before: dict) -> dict:
+    """This thread's record less ``before``, an earlier ``thread_record()``."""
+    now = thread_record()
+    shapes = {key: n - before["shapes"].get(key, 0) for key, n in now["shapes"].items()}
+    return {"calls": now["calls"] - before["calls"],
+            "launches": now["launches"] - before["launches"],
+            "shapes": {key: n for key, n in shapes.items() if n}}
+
+
+def add_to_thread_record(record: dict) -> None:
+    """Adds a record of calls made on other threads for this thread's work
+    (a mesh program's shards)."""
+    _thread.calls = getattr(_thread, "calls", 0) + record["calls"]
+    _thread.launches = getattr(_thread, "launches", 0) + record["launches"]
+    shapes = getattr(_thread, "shapes", {})
+    for key, n in record["shapes"].items():
+        shapes[key] = shapes.get(key, 0) + n
+    _thread.shapes = shapes
 
 _lib = None
 _workspaces: dict = {}
@@ -160,6 +192,7 @@ def grouped_sums_multi(vals: Sequence[Optional[torch.Tensor]], masks: Sequence[t
     if len(vals) != len(masks):
         raise ValueError(f"grouped_sums: {len(vals)} columns but {len(masks)} masks")
     if ids.device.type == "cpu":
+        _thread.calls = getattr(_thread, "calls", 0) + 1
         return grouped_sums_multi_ref(vals, masks, ids, k)
     if ids.device.type != "cuda":
         raise ValueError(f"grouped_sums: no kernel for device {ids.device}")
@@ -185,6 +218,12 @@ def grouped_sums_multi(vals: Sequence[Optional[torch.Tensor]], masks: Sequence[t
     if dtype == torch.float32 and any(v is None for v in vals):
         raise TypeError("grouped_sums: counts are int64; they cannot join a float32 call")
 
+    _thread.calls = getattr(_thread, "calls", 0) + 1
+    shapes = getattr(_thread, "shapes", {})
+    key = (int(n), int(k), len(vals), dtype)
+    shapes[key] = shapes.get(key, 0) + 1
+    _thread.shapes = shapes
+
     # columns with one mask side by side, so a launch reads that mask once
     first: dict = {}
     order = sorted(range(len(vals)), key=lambda c: first.setdefault(masks[c].data_ptr(), c))
@@ -207,6 +246,7 @@ def grouped_sums_multi(vals: Sequence[Optional[torch.Tensor]], masks: Sequence[t
                 raise RuntimeError(f"grouped_sums: kernel launch failed with CUDA error {err}")
             with _launches_lock:
                 launches += 1
+            _thread.launches = getattr(_thread, "launches", 0) + 1
     return out
 
 

@@ -31,7 +31,6 @@ the only host syncs are the ones ``to_host`` needs to size its fetch.
 from __future__ import annotations
 
 import functools
-import threading
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -407,6 +406,14 @@ def sorted_dictionary_encode(arr) -> tuple[np.ndarray, np.ndarray]:
     return dict_vals[order], rank[idx]
 
 
+def sorted_unique(arr) -> np.ndarray:
+    """Sorted unique values of a pyarrow string array as an object array:
+    the dictionary of ``sorted_dictionary_encode`` without the codes."""
+    import pyarrow.compute as pc
+
+    return np.sort(np.asarray(pc.unique(arr)).astype(object), kind="stable")
+
+
 def _codes_in_dictionary(
     arr, dictionary: np.ndarray, strict: bool = False,
     dict_id: Optional[str] = None,
@@ -452,7 +459,19 @@ class EncodedBatch:
         return self.dict_ids[i] if self.dict_ids else None
 
 
-def encode_host_batch(batch: ColumnBatch, pad: Optional[int] = None) -> EncodedBatch:
+def encode_host_batch(batch: ColumnBatch, pad: Optional[int] = None,
+                      dictionaries: Optional[list] = None,
+                      force_null: Optional[list] = None,
+                      force_scales: Optional[list] = None) -> EncodedBatch:
+    """``dictionaries``, ``force_null``, ``force_scales`` and ``pad`` pin the
+    layout from outside: the processes of a mesh group encode their own rows
+    with one agreed layout (``parallel.multihost``), so that every process
+    makes the same data-dependent decisions in the program. Per column:
+    ``dictionaries[i]`` a sorted string dictionary to code against;
+    ``force_null[i]`` a null array even without nulls; ``force_scales[i]``
+    an int for scaled int64 at that scale, ``"f32"`` for a downcast, None
+    for the natural dtype (no decimal sniff, no downcast). Without them the
+    layout follows the batch's own data."""
     n = batch.num_rows
     if pad is None:
         pad = bucket_size(n)
@@ -462,7 +481,8 @@ def encode_host_batch(batch: ColumnBatch, pad: Optional[int] = None) -> EncodedB
     int_ranges: list = []
     ssums: list = []
     dict_ids: list = []
-    for f, c in zip(batch.schema, batch.columns):
+    for i, (f, c) in enumerate(zip(batch.schema, batch.columns)):
+        forced = force_null is not None and force_null[i]
         ssums.append(None)
         dict_ids.append(None)
         int_ranges.append(
@@ -473,7 +493,11 @@ def encode_host_batch(batch: ColumnBatch, pad: Optional[int] = None) -> EncodedB
             null = np.asarray(c.data.is_null()) if c.data.null_count else None
             filled = c.data.fill_null("")
             inv = None
-            if getattr(c, "dict_id", None):
+            pinned = dictionaries is not None and dictionaries[i] is not None
+            if pinned:
+                dictionary = np.asarray(dictionaries[i], dtype=object)
+                inv = _codes_in_dictionary(filled, dictionary)
+            elif getattr(c, "dict_id", None):
                 # catalog-shared dictionary: stable codes across partitions
                 from ballista_tpu_torch.engine.dictionaries import REGISTRY
 
@@ -486,18 +510,32 @@ def encode_host_batch(batch: ColumnBatch, pad: Optional[int] = None) -> EncodedB
                         dict_ids[-1] = c.dict_id
             if inv is None:
                 dictionary, inv = sorted_dictionary_encode(filled)
-            if n > 0:
+            if not pinned and n > 0:
+                # a pinned encode is neither shared nor per batch
                 from ballista_tpu_torch.engine.dictionaries import REGISTRY
 
                 REGISTRY.note_encode(dict_ids[-1] is not None)
             arrays.append(_padded(inv.astype(np.int32), pad))
-            if null is not None:
-                arrays.append(_padded(null, pad))
-            col_meta.append((f.dtype, null is not None, dictionary.astype(object), None))
+            has_null = null is not None or forced
+            if has_null:
+                arrays.append(_padded(null if null is not None else np.zeros(n, bool), pad))
+            col_meta.append((f.dtype, has_null, dictionary.astype(object), None))
         else:
             vals = np.asarray(c.data)
             scale = None
-            if NATIVE_DTYPES and f.dtype is DataType.FLOAT64:
+            if force_scales is not None:
+                fs = force_scales[i]
+                if isinstance(fs, int):
+                    zeroed = vals if c.valid is None else np.where(c.valid, vals, 0.0)
+                    vals = np.round(zeroed * 10.0**fs).astype(np.int64)
+                    scale = fs
+                    lo = int(vals.min()) if n else 0
+                    hi = int(vals.max()) if n else 0
+                    int_ranges[-1] = bucket_range(lo, hi)
+                    ssums[-1] = _pow2_at_least(abs_sum_bound(vals))
+                elif fs == "f32":
+                    vals = vals.astype(np.float32)
+            elif NATIVE_DTYPES and f.dtype is DataType.FLOAT64:
                 # sniff failure keeps f64 unless f32 is LOSSLESS: silently
                 # downcasting genuinely-f64 data would change group identity
                 sniffed = sniff_decimal(vals, c.valid)
@@ -510,9 +548,10 @@ def encode_host_batch(batch: ColumnBatch, pad: Optional[int] = None) -> EncodedB
                     if f32 is not None:
                         vals = f32
             arrays.append(_padded(vals, pad))
-            has_null = c.valid is not None and not c.valid.all()
+            has_null = (c.valid is not None and not c.valid.all()) or forced
             if has_null:
-                arrays.append(_padded(~c.valid, pad))
+                arrays.append(_padded(~c.valid if c.valid is not None else np.zeros(n, bool),
+                                      pad))
             col_meta.append((f.dtype, has_null, None, scale))
     arrays.append(np.arange(pad) < n)
     return EncodedBatch(batch.schema, n, pad, arrays, col_meta, int_ranges, ssums,
@@ -2142,23 +2181,6 @@ def sum_range(c: DeviceCol, n_pad: int) -> Optional[tuple[int, int]]:
 # grouped_sums kernel; more groups use index_add_ / scatter_reduce
 MASKED_SEG_K = 32
 
-# grouped_sums_multi calls made by SegSums on each thread
-_GS_CALLS = threading.local()
-
-
-def grouped_sums_calls() -> int:
-    """The grouped_sums calls ``SegSums.compute`` has made on this thread:
-    one launch each on the card unless a call is wider than a launch takes.
-    An executor reports a task's share in ``op.GroupedSums.calls``."""
-    return getattr(_GS_CALLS, "n", 0)
-
-
-def count_grouped_sums_calls(n: int) -> None:
-    """Adds ``n`` calls made on other threads for this thread's work (a
-    mesh program's shards) to this thread's count."""
-    _GS_CALLS.n = grouped_sums_calls() + int(n)
-
-
 def _mask(row_valid, null):
     return row_valid if null is None else (row_valid & ~null)
 
@@ -2233,7 +2255,6 @@ class SegSums:
                     else self._cols[i][0].to(acc).contiguous() for i in idx]
             masks = [self._cols[i][1] for i in idx]
             res = GS.grouped_sums_multi(vals, masks, ids.contiguous(), k)
-            _GS_CALLS.n = grouped_sums_calls() + 1
             for row, i in enumerate(idx):
                 v = self._cols[i][0]
                 out[i] = res[row] if v is None else res[row].to(v.dtype)

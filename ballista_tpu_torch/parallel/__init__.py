@@ -25,6 +25,15 @@ the mesh's barrier, so its peers stop waiting, and a barrier that waits past
 (``ShardFailed``), never part of it. A round costs the shards' threads two
 barriers under the interpreter lock (about 4 ms on 4 shards of an H100,
 PERF.md), so an exchange sends all its columns in one round.
+
+A mesh group (``parallel.multihost``) spans several processes: P processes
+of L shards each form one mesh of P x L shards, a process's shards taking
+the global ranks after those of lower process ids. ``shard_map`` given the
+group's transport runs this process's L shards as ranks ``pid * L ..``; a
+round is still one cross-process call: the local shards pack their buffers
+into bytes and post them, one thread (local rank 0) makes the call, and each
+shard takes its rows, so that every shard receives what the one-process mesh
+of P x L shards would give it, in global shard order.
 """
 from __future__ import annotations
 
@@ -87,23 +96,41 @@ class ShardFailed(ExecutionError):
 
 
 class _MeshRun:
-    """One run's shared state: the barrier and each shard's posted value."""
+    """One run's shared state: the barrier, each shard's posted value and,
+    in a mesh group, the transport and each round's received bytes."""
 
-    def __init__(self, devices: Sequence[torch.device], timeout: float):
+    def __init__(self, devices: Sequence[torch.device], timeout: float, group=None):
         self.devices = list(devices)
         self.n = len(self.devices)
         self.barrier = threading.Barrier(self.n, timeout=timeout)
         self.posted: list = [None] * self.n
         self.done: list = [None] * self.n
+        self.group = group
+        self.received = None
+        self._round: Optional[torch.Tensor] = None
+        self._round_lock = threading.Lock()
+        self._round_seen = 0
+
+    def round_buffer(self, shape: tuple, device: torch.device, pin: bool) -> torch.Tensor:
+        """The current round's shared send buffer: the first shard to reach
+        a round makes it, the others take it (a round ends at a barrier that
+        no shard passes before the transport has sent the last one)."""
+        with self._round_lock:
+            if self._round_seen % self.n == 0:
+                self._round = torch.empty(shape, dtype=torch.uint8, device=device,
+                                          pin_memory=pin)
+            self._round_seen += 1
+            return self._round
 
 
 class ShardCollective:
-    """Shard ``rank``'s collectives in one mesh run."""
+    """Shard ``rank``'s collectives in one mesh run (``rank`` is its local
+    rank; in a mesh group its global rank is ``pid * L + rank``)."""
 
     def __init__(self, run: _MeshRun, rank: int):
         self.run = run
         self.rank = rank
-        self.n_dev = run.n
+        self.n_dev = run.n * (run.group.size if run.group is not None else 1)
         self.device = run.devices[rank]
 
     def _stream(self):
@@ -146,17 +173,114 @@ class ShardCollective:
     def all_to_all(self, bufs: list) -> list:
         """Row ``j`` of each ``[n_dev, cap]`` buffer in ``bufs`` to shard
         ``j``, in one round; row ``j`` of each result from shard ``j``."""
+        if self.run.group is not None:
+            return self._group_all_to_all(list(bufs))
         r = self.rank
         got = self._take(self._post(list(bufs)), lambda bs: [b[r] for b in bs])
         return [torch.stack([peer[c] for peer in got]) for c in range(len(bufs))]
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the shards, in rank order."""
-        parts = [p[0] for p in self._take(self._post(x), lambda v: [v])]
+        if self.run.group is not None:
+            got = self._group_all_to_all([x.reshape(1, 1).expand(self.n_dev, 1)])[0]
+            parts = [got[j, 0] for j in range(self.n_dev)]
+        else:
+            parts = [p[0] for p in self._take(self._post(x), lambda v: [v])]
         total = parts[0]
         for p in parts[1:]:
             total = total + p
-        return total
+        return total.reshape(x.shape)
+
+    def _group_all_to_all(self, bufs: list) -> list:
+        """``all_to_all`` across a mesh group's processes, in one
+        cross-process call. Each shard copies its ``[P * L, cap]`` buffers
+        (any dtypes) as bytes into its place of the round's send buffer
+        ``[P, L_src, L_dst, row bytes]`` (block ``q`` goes to process ``q``),
+        in pinned host memory over gloo, waiting for its stream's copies;
+        local rank 0 makes the transport's call and lays the received bytes
+        out as one block a shard, each buffer's ``[P * L, cap]`` rows
+        contiguous in it; each shard copies its buffers' rows onto its
+        device on its own stream, rows in global shard order."""
+        run, group = self.run, self.run.group
+        n_proc, n_local = group.size, run.n
+        layout, row_bytes, block_bytes = _layout(bufs, self.n_dev)
+        stream = self._stream()
+        send = run.round_buffer(
+            (n_proc, n_local, n_local, row_bytes),
+            torch.device("cpu") if group.on_host else run.devices[0],
+            pin=group.on_host and stream is not None)
+        for b, (_dtype, _cap, nbytes, _padded, off, _goff) in zip(bufs, layout):
+            raw = b.contiguous().view(torch.uint8).reshape(n_proc, n_local, nbytes)
+            send[:, self.rank, :, off:off + nbytes].copy_(raw)
+        event = None
+        if stream is not None and send.is_cuda:
+            event = torch.cuda.Event()
+            event.record(stream)
+            send.record_stream(stream)
+        run.posted[self.rank] = (None, event)
+        run.barrier.wait()
+        if self.rank == 0:
+            try:
+                for _value, peer in run.posted:
+                    if peer is not None:
+                        stream.wait_event(peer)
+                received = group.exchange(send)
+                out = torch.empty((n_local, block_bytes), dtype=torch.uint8,
+                                  device=received.device,
+                                  pin_memory=not received.is_cuda and stream is not None)
+                for _dtype, _cap, _nbytes, padded, off, goff in layout:
+                    out[:, goff:goff + self.n_dev * padded].view(
+                        n_local, n_proc, n_local, padded).copy_(
+                        received[:, :, :, off:off + padded].permute(2, 0, 1, 3))
+                done = None
+                if out.is_cuda:
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                run.received = (out, done)
+            except BaseException:
+                run.barrier.abort()
+                raise
+        run.barrier.wait()
+        out, done = run.received
+        if done is not None:
+            stream.wait_event(done)
+        got = _unpack(out[self.rank], layout, self.n_dev,
+                      self.device if stream is not None else None)
+        if out.is_cuda:
+            out.record_stream(stream)
+        return got
+
+
+def _layout(bufs: list, n_dev: int) -> tuple:
+    """Where each ``[n_dev, cap]`` buffer's bytes go in a round: per buffer
+    (dtype, cap, bytes a row, bytes a row padded to 8, offset in a send row,
+    offset in a shard's received block); the send row's bytes; the
+    received block's bytes."""
+    out, off, goff = [], 0, 0
+    for b in bufs:
+        nbytes = int(b.shape[1]) * b.element_size()
+        padded = nbytes + (-nbytes % 8)
+        out.append((b.dtype, int(b.shape[1]), nbytes, padded, off, goff))
+        off += padded
+        goff += n_dev * padded
+    return out, off, goff
+
+
+def _unpack(block: torch.Tensor, layout: list, n_dev: int, device=None) -> list:
+    """Each buffer's ``[n_dev, cap]`` rows from a shard's received block: a
+    view of it, or with ``device`` a tensor of its own copied there on the
+    current stream (so that each buffer is freed when its last use ends, as
+    the one-process collective's are)."""
+    out = []
+    for dtype, cap, nbytes, padded, _off, goff in layout:
+        rows = block[goff:goff + n_dev * padded]
+        if device is not None:
+            rows = rows.to(device, non_blocking=True, copy=True)
+        rows = rows.view(n_dev, padded)
+        if padded != nbytes:
+            rows = rows[:, :nbytes].contiguous()
+        out.append(rows.view(dtype).reshape(n_dev, cap))
+    return out
 
 
 _TLS = threading.local()
@@ -191,19 +315,21 @@ def _shard_stream(device: torch.device, rank: int):
 
 
 def shard_map(body: Callable, shard_args: Sequence[Sequence], devices: Sequence,
-              timeout: float = COLLECTIVE_TIMEOUT_S) -> list:
+              timeout: float = COLLECTIVE_TIMEOUT_S, group=None) -> list:
     """``body(*shard_args[i])`` once per shard ``i`` of the mesh ``devices``,
     each on its own thread and, on a card, its own stream (synchronized
     before the shard ends), with ``collective_for`` giving that shard's
     collective; the outputs in shard order (one shard alone runs on the
-    calling thread, with no collective). Raises ``ShardFailed`` when any
-    shard raised or a collective timed out."""
+    calling thread, with no collective). With ``group``, a mesh group's
+    transport (``parallel.multihost``), ``devices`` are this process's
+    shards of the group's mesh and the collectives span the group. Raises
+    ``ShardFailed`` when any shard raised or a collective timed out."""
     devices = [torch.device(d) for d in devices]
     if len(shard_args) != len(devices):
         raise ValueError(f"{len(shard_args)} shard argument lists for {len(devices)} shards")
-    if len(devices) == 1:
+    if len(devices) == 1 and group is None:
         return [body(*shard_args[0])]
-    run = _MeshRun(devices, timeout)
+    run = _MeshRun(devices, timeout, group)
     results: list = [None] * run.n
     errors: list = [None] * run.n
 

@@ -417,10 +417,13 @@ class InMemoryClusterState:
 
     def max_device_count(self) -> int:
         """Largest device mesh any schedulable executor offers — the planner's
-        "is a fat executor available" signal for ICI exchange promotion."""
+        "is a fat executor available" signal for ICI exchange promotion. A
+        mesh group's members do not count: their collective unit is the
+        group (gang scheduling), and a stage promoted onto one member's
+        shards would pin it there and idle its peers."""
         with self._lock:
             alive = self.alive_executors()
-        return max((e.device_count for e in alive), default=0)
+        return max((e.device_count for e in alive if not e.mesh_group_id), default=0)
 
     def device_kinds(self) -> set[str]:
         """Device kinds alive executors registered with (``"tpu"``/``"cpu"``)

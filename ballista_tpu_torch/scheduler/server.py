@@ -16,8 +16,12 @@ The port's copy keeps the in-memory cluster state only: the durable
 their own slices, and asking for them raises. The elastic scale controller
 (``scheduler/scale.py``) is ported: it is ticked from the expiry loop, and
 ``drain_executor`` starts a drain-safe scale-down of one executor.
-Mesh-group gang scheduling is kept as written; no torch executor
-registers a mesh group yet, so it never fires.
+Mesh-group gang scheduling (``_revive_gang_stages``) binds a stage whose
+collectives ``torch_engine.gang_collectives`` finds onto a complete group of
+torch executor processes (``parallel/multihost.py``) in one push-mode launch
+batch; a member's failure restarts the stage whole, and a ``GANG_UNFUSABLE``
+failure restarts it un-ganged. The JAX package's cross-scheduler gang
+markers live in the durable state store and wait with the HA backends.
 """
 from __future__ import annotations
 
@@ -1386,38 +1390,19 @@ class SchedulerServer:
     @staticmethod
     def _gang_eligible_impl(plan, props: dict[str, str]) -> bool:
         """Mirror of the engine-side multihost condition: gang scheduling only
-        helps when the engine will actually run the collective program — the
-        final-agg(Repartition(partial-agg)) shape on the torch backend with the
-        ICI shuffle enabled. Anything else split across a group would make
-        every member materialize the whole exchange locally (group_size x the
-        work) and inherit whole-stage-restart semantics for nothing."""
-        from ballista_tpu_torch.plan.physical import (
-            HashAggregateExec, RepartitionExec, walk_physical,
-        )
-
+        helps when the engine will actually run a collective program across
+        the group — a node ``torch_engine.gang_collectives`` finds, on the
+        torch backend with the ICI shuffle enabled. Anything else split across
+        a group would make every member materialize the whole exchange locally
+        (group_size x the work) and inherit whole-stage-restart semantics for
+        nothing."""
         if props.get("ballista.executor.backend", "torch") == "numpy":
             return False
         if props.get("ballista.tpu.ici_shuffle", "true").lower() in ("false", "0", "no"):
             return False
-        from ballista_tpu_torch.engine.torch_engine import (
-            _fusable_partitioned_join, _supported,
-        )
+        from ballista_tpu_torch.engine.torch_engine import gang_collectives
 
-        for n in walk_physical(plan):
-            if (
-                isinstance(n, HashAggregateExec)
-                and n.mode == "final"
-                and isinstance(n.input, RepartitionExec)
-                and isinstance(n.input.input, HashAggregateExec)
-                and n.input.input.mode == "partial"
-                and _supported(n.input.input)
-            ):
-                return True
-            # partitioned join over two inline exchanges: the collective
-            # join (both sides on one cross-process all_to_all)
-            if _fusable_partitioned_join(n) and n.how in ("inner", "left", "semi", "anti") and n.on:
-                return True
-        return False
+        return bool(gang_collectives(plan))
 
     def _launch_multi(
         self,

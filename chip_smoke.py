@@ -155,7 +155,33 @@ Phases, each of which passes or ends the run with a non-zero exit:
              collective, exact rows. Every mesh program of at least 1 MB must
              measure no more than its eager estimate (its DeviceExecute
              span's ``hbm_est_bytes`` and ``hbm_peak_bytes``).
-11. timing — grouped_sums at one column (2^21 rows, k = 12, int64), at
+11. multihost — a mesh group (``run_multihost_phase``): a push-mode
+             scheduler in this process and MH_MEMBERS ``python -m
+             ballista_tpu_torch.executor --mesh-group-*`` processes of
+             MH_SHARDS shards each, all on the card, one complete group g0
+             of 4 global shards (the layout of tests/test_multihost.py). Each
+             member's per-shard budget (as it logs it at join) must be a
+             quarter of the card's 0.85 and each must register 4 shards on
+             its card; the transport (gloo through pinned host memory: the
+             members share the card) is printed with its reason. q1 (cold,
+             warm), MESH_AGG_SQL and MESH_JOIN_SQL (joins partitioned) with
+             every exchange inline (``MH_GANG``): rows exact against an int64
+             reference (``mesh_exact``; q1's rounded sum within the rounding
+             the one-process q1 runs made), one gang stage at attempt 0, each
+             member logging each of its fused aggregates and joins once, zero
+             host fallbacks, grouped_sums launches (the members' task metrics)
+             equal to 2 per shard per fused aggregate, and the calls by shape
+             they report (the kernel is checked at those shapes with the
+             rest), every program of >= 1 MB within its eager estimate; q5
+             (cold, warm; joins partitioned): at SF1 its aggregate and 5 joins
+             gang; q12 (joins partitioned), whose build side repeats its keys:
+             both members raise GANG_UNFUSABLE and the stage runs again
+             un-ganged, rows exact. Then member 1 fails its gang task once
+             (``task.execute:fail_n``): the stage restarts whole, rows exact,
+             and member 0 stops waiting after the session's MH_TIMEOUT_MS.
+             Every run prints its wall beside the distributed phase's, and the
+             cross-process rounds, bytes and seconds the members logged.
+12. timing — grouped_sums at one column (2^21 rows, k = 12, int64), at
              the largest and smallest stages of q1's warm run (the fused
              program's partial aggregate and final merge), at the largest
              stage of its unfused run, and at a
@@ -2261,6 +2287,304 @@ def run_mesh_phase(device: str, tables: dict, sf: float, tag: str, refs: tuple,
     return out
 
 
+# ---- 11. multihost -----------------------------------------------------------------
+# each member's shards: two members of MH_SHARDS shards on one card make the
+# 4-shard global mesh of tests/test_multihost.py's layout
+MH_SHARDS = 2
+MH_MEMBERS = 2
+# every exchange inline, so that the collective stages gang-schedule
+MH_GANG = {"ballista.tpu.fuse_exchange_max_rows": str(1 << 28)}
+# (label, sql or None for the TPC-H query of that name, settings, runs, the
+# fused aggregates and joins each member runs in the gang stage, or None
+# where a collective join's build keys repeat: GANG_UNFUSABLE in both
+# members, and the stage runs again un-ganged). q5's join order follows the
+# scale's statistics: at SF1 every build side's keys are unique (customer
+# on (c_custkey, c_nationkey)) and its whole chain gangs; at SF 0.01 two
+# build sides repeat theirs. q12's build side (lineitem) repeats
+# l_orderkey at every scale.
+MH_CASES = (("q1", None, {}, ("cold", "warm"), (1, 0)),
+            ("agg", MESH_AGG_SQL, {}, ("once",), (1, 0)),
+            ("join", MESH_JOIN_SQL, PARTITIONED, ("once",), (1, 1)),
+            ("q5", None, PARTITIONED, ("cold", "warm"), {1.0: (1, 5), 0.01: None}),
+            ("q12", None, PARTITIONED, ("once",), None))
+# the failure case's collective timeout: the waiting peer gives up this soon
+MH_TIMEOUT_MS = 15_000
+
+
+def mesh_exact(tables: dict) -> dict:
+    """MESH_AGG_SQL and MESH_JOIN_SQL exactly (numpy int64 sums of
+    hundredths; every line's order exists), in ORDER BY order."""
+    li = _read(tables, "lineitem", ["l_orderkey", "l_quantity", "l_extendedprice",
+                                     "l_returnflag", "l_linestatus"])
+    qty, price = _hundredths(li["l_quantity"]), _hundredths(li["l_extendedprice"])
+    agg: dict = {}
+    for f, s in sorted(set(zip(li["l_returnflag"], li["l_linestatus"]))):
+        m = (li["l_returnflag"] == f) & (li["l_linestatus"] == s)
+        for k, v in (("l_returnflag", f), ("l_linestatus", s),
+                     ("sum_qty", int(qty[m].sum()) / 100), ("n", int(m.sum()))):
+            agg.setdefault(k, []).append(v)
+    od = _read(tables, "orders", ["o_orderkey", "o_orderpriority"])
+    prio = _index(od["o_orderkey"], od["o_orderpriority"].astype(object), None)[li["l_orderkey"]]
+    join: dict = {}
+    for p in sorted(set(prio)):
+        m = prio == p
+        for k, v in (("o_orderpriority", p), ("n", int(m.sum())),
+                     ("rev", int(price[m].sum()) / 100)):
+            join.setdefault(k, []).append(v)
+    return {"agg": agg, "join": join}
+
+
+def start_member(port: int, coordinator: str, pid: int, device: str, log_path: str):
+    """One torch executor process of mesh group g0 (MH_MEMBERS members of
+    MH_SHARDS shards), push mode, its log in ``log_path``."""
+    cmd = [sys.executable, "-m", "ballista_tpu_torch.executor", "--backend", "torch",
+           "--scheduler-host", "127.0.0.1", "--scheduler-port", str(port), "--port", "0",
+           "--task-slots", "2", "--scheduling-policy", "push", "--log-level", "INFO",
+           "--mesh-group-id", "g0", "--mesh-group-coordinator", coordinator,
+           "--mesh-group-size", str(MH_MEMBERS), "--mesh-group-process-id", str(pid),
+           "--mesh-group-local-devices", str(MH_SHARDS)]
+    if device != "cuda":
+        cmd += ["--device", device]
+    log = open(log_path, "w")
+    return subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT), log
+
+
+class MemberLogs:
+    """The members' logs, read on from where the last read stopped."""
+
+    def __init__(self, paths: list):
+        self.paths = paths
+        self.offsets = [0] * len(paths)
+
+    def new(self) -> list:
+        out = []
+        for i, path in enumerate(self.paths):
+            with open(path) as f:
+                f.seek(self.offsets[i])
+                text = f.read()
+                self.offsets[i] = f.tell()
+            out.append(text)
+        return out
+
+
+def _programs(text: str, job_id: str, kind: str) -> list:
+    """(rounds, bytes, seconds, process group set-up seconds) of each
+    ``multihost fused <kind>`` line one member logged for ``job_id``."""
+    out = []
+    for line in text.splitlines():
+        if f"multihost fused {kind}: group={job_id}-" in line:
+            tail = line.rsplit("; exchange ", 1)[1].split()
+            setup = float(line.rsplit("set-up ", 1)[1].split()[0])
+            out.append((int(tail[0]), int(tail[2]), float(tail[4]), setup))
+    return out
+
+
+def reported_shapes(metrics: dict) -> dict:
+    """{(n, k, columns, dtype): calls} from the tasks' reported
+    ``op.GroupedSums.shape.<n>x<k>x<columns>.<dtype>`` metrics (the calls that
+    launched the kernel in executor processes)."""
+    out = {}
+    for key, calls in metrics.items():
+        if key.startswith("op.GroupedSums.shape."):
+            dims, dtype = key[len("op.GroupedSums.shape."):].split(".")
+            n, k, ncols = (int(d) for d in dims.split("x"))
+            out[(n, k, ncols, getattr(torch, dtype))] = int(calls)
+    return out
+
+
+def run_multihost_phase(device: str, tables: dict, sf: float, tag: str, refs: tuple,
+                        earlier: dict) -> dict:
+    """The multihost phase (see the module docstring). ``earlier`` holds
+    the distributed phase's runs (their walls are printed beside these) and
+    the slice's and mesh phase's q1 runs (their presum_safe rescalings bound
+    q1's rounded sum here: the members' own are not visible to this
+    process). Returns {("multihost", query, run): record}."""
+    import ballista_tpu_torch.engine.memory_model as MM
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig, SchedulerConfig
+    from ballista_tpu_torch.scheduler.server import SchedulerServer
+
+    exact, want = refs
+    on_card = device.startswith("cuda")
+    t_phase = time.time()
+    mexact = mesh_exact(tables)
+    host = BallistaContext.standalone(backend="numpy")
+    for name, location in tables.items():
+        host.register_parquet(name, location)
+    q1_presums = [p for k in (("default", "q1", "warm"), ("mesh", "q1", "warm"))
+                  if k in earlier for p in earlier[k]["presums"]]
+    work = os.path.join(DATA_DIR, "multihost")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sched = SchedulerServer(SchedulerConfig(scheduling_policy="push"))
+    port = sched.start(0)
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    paths = [os.path.join(work, f"member{pid}.log") for pid in range(MH_MEMBERS)]
+    members = []
+    out = {}
+    try:
+        t0 = time.time()
+        members = [start_member(port, coordinator, pid, device, paths[pid])
+                   for pid in range(MH_MEMBERS)]
+        deadline = time.time() + EXECUTOR_START_S
+        while not sched.cluster.complete_mesh_groups() and time.time() < deadline:
+            if any(p.poll() is not None for p, _ in members):
+                break
+            time.sleep(0.05)
+        logs = MemberLogs(paths)
+        if not sched.cluster.complete_mesh_groups():
+            raise AssertionError(f"mesh group g0 never formed: {[t[-2000:] for t in logs.new()]}")
+        joined = logs.new()
+        print(f"mesh group g0: {MH_MEMBERS} executor processes of {MH_SHARDS} shards on "
+              f"{device} registered as one complete group in {time.time() - t0:.3f} s",
+              flush=True)
+        # each member's per-shard budget and the transport, as it logged them
+        card_split = (MM.shard_budget_bytes(MM.detect_device_budget_bytes(device),
+                                            MH_MEMBERS * MH_SHARDS) if on_card else 0)
+        for pid, text in enumerate(joined):
+            line = next((ln for ln in text.splitlines() if "mesh group joined" in ln), "")
+            if "joining mesh group g0" not in text or not line:
+                raise AssertionError(f"member {pid} did not join: {text[-2000:]}")
+            budget = int(line.split("per-shard budget ")[1].split()[0])
+            if on_card and budget != card_split:
+                raise AssertionError(f"member {pid}: per-shard budget {budget}, want a "
+                                     f"quarter of the card's {card_split * 4}: {card_split}")
+            print(f"member {pid}: {line.split('mesh group joined: ')[1]} [{tag}]", flush=True)
+        shapes = sorted((e.mesh_group_process_id, e.shards_per_card)
+                        for e in sched.cluster.alive_executors())
+        if [s for _, s in shapes] != [MH_MEMBERS * MH_SHARDS] * MH_MEMBERS:
+            raise AssertionError(f"registered shards per card {shapes}")
+
+        def job(sql: str, settings: dict):
+            c = BallistaContext.remote("127.0.0.1", port)
+            c.config = BallistaConfig(dict(MH_GANG, **settings))
+            for name, location in tables.items():
+                c.register_parquet(name, location)
+            t1 = time.time()
+            table = c.sql(sql).collect()
+            wall = time.time() - t1
+            g = sched.tasks.get_job(c.last_job_id)
+            return table, wall, g, c.last_job_id
+
+        for label, sql, settings, runs, expect in MH_CASES:
+            sql = sql or want[label][0]
+            if isinstance(expect, dict):
+                expect = expect[sf]
+            for run in runs:
+                table, wall, g, job_id = job(sql, settings)
+                summary = job_summary(g)
+                texts = logs.new()
+                if label in exact:
+                    presums = q1_presums if label == "q1" else []
+                    check_result(table, want[label][1], exact[label], label, presums)
+                else:
+                    check_result(table, host.sql(sql).collect(), mexact[label], label, [])
+                check_job(f"multihost {label} {run}", summary)
+                gang = [s for s in g.stages.values() if s.gang]
+                calls = int(sum(s.stage_metrics.get("op.GroupedSums.calls", 0) for s in gang))
+                launches = int(sum(s.stage_metrics.get("op.GroupedSums.launches", 0)
+                                   for s in g.stages.values()))
+                progs = [_programs(t, job_id, k) for t in texts for k in ("aggregate", "join")]
+                if expect is None:
+                    # a collective join's build keys repeat: the gang stage
+                    # raises GANG_UNFUSABLE in both members and runs again
+                    # un-ganged
+                    unganged = [s for s in g.stages.values() if s.no_gang]
+                    if gang or len(unganged) != 1 or unganged[0].attempt < 1 or not all(
+                            "GANG_UNFUSABLE" in t for t in texts):
+                        raise AssertionError(f"multihost {label} {run}: gang stages {len(gang)}"
+                                             f", un-ganged {len(unganged)}")
+                else:
+                    aggs, joins = expect
+                    counts = [len(p) for p in progs]
+                    if len(gang) != 1 or gang[0].attempt != 0 or counts != [aggs, joins] * 2:
+                        raise AssertionError(f"multihost {label} {run}: gang stages {len(gang)}"
+                                             f", programs per member {counts}")
+                    # a member's tasks of the stage share its stage engine,
+                    # and each task reports that engine's counts: a member
+                    # that counted each program once gives tasks x programs
+                    m = gang[0].stage_metrics
+                    counters = (m.get("op.FusedMultiHostExchange.count", 0),
+                                m.get("op.FusedMultiHostJoin.count", 0))
+                    if counters != (gang[0].partitions * aggs, gang[0].partitions * joins):
+                        raise AssertionError(f"multihost {label} {run}: the {gang[0].partitions} "
+                                             f"tasks counted (aggregates, joins) {counters}")
+                    counted = launches if on_card else calls
+                    want_calls = CALLS_PER_SHARD * MH_MEMBERS * MH_SHARDS * aggs
+                    if counted != want_calls or calls != want_calls:
+                        raise AssertionError(f"multihost {label} {run}: grouped_sums launches "
+                                             f"{launches}, calls {calls}, want {want_calls}")
+                    shaped = sum(reported_shapes(summary["metrics"]).values())
+                    if on_card and shaped != launches:
+                        raise AssertionError(f"multihost {label} {run}: {shaped} calls by "
+                                             f"shape, {launches} launches")
+                programs = mesh_programs(sched.traces.get(job_id))
+                check_mesh_memory(f"multihost {label} {run}", programs, on_card, tag)
+                moved = [sum(p[i] for ps in progs for p in ps) for i in range(4)]
+                dist = earlier.get(("distributed", label, run))
+                print(f"multihost {label} {run}: wall {wall:.3f} s (distributed phase: "
+                      f"{dist['wall'] if dist else float('nan'):.3f} s), stages "
+                      f"{summary['stages']}, gang stages {len(gang)}, programs per member "
+                      f"(aggregates, joins) {[len(p) for p in progs]}, cross-process exchange "
+                      f"{moved[0]} rounds, {moved[1]} bytes, {moved[2]:.6f} s, process group "
+                      f"set-up {moved[3]:.6f} s (both members), "
+                      f"grouped_sums launches {launches} (calls {calls}), host fallbacks 0, "
+                      f"admission budget {summary['budget']} bytes [{tag}]", flush=True)
+                out[("multihost", label, run)] = {
+                    "table": table, "wall": wall, "launches": launches,
+                    "shapes": reported_shapes(summary["metrics"]), "presums": [],
+                    "metrics": summary["metrics"]}
+
+        # member 1 fails its gang task once, before entering the program
+        member1 = next(e.executor_id for e in sched.cluster.alive_executors()
+                       if e.mesh_group_process_id == 1)
+        fault = f"task.execute:fail_n@n=1:executor_id={member1}:stage_id=1"
+        t1 = time.time()
+        table, wall, g, job_id = job(MESH_AGG_SQL, {
+            "ballista.shuffle.partitions": str(MH_MEMBERS),
+            "ballista.tpu.mesh_group.timeout_ms": str(MH_TIMEOUT_MS),
+            "ballista.faults.schedule": fault})
+        check_result(table, host.sql(MESH_AGG_SQL).collect(), mexact["agg"], "agg", [])
+        gang = [s for s in g.stages.values() if s.gang]
+        if len(gang) != 1 or gang[0].attempt < 1:
+            raise AssertionError(f"multihost failure: gang stages {[s.attempt for s in gang]}")
+        # the peer of the failed member gave up at the rendezvous after the
+        # phase's timeout, not the default's 120 s: the store's error says
+        # how long it waited
+        gave_up = ""
+        while time.time() < t1 + MH_TIMEOUT_MS / 1000 + 30 and "wait timeout" not in gave_up:
+            time.sleep(0.2)
+            gave_up += logs.new()[0]
+        waited = [int(part.split("ms")[0]) for part in gave_up.split("wait timeout after ")[1:]]
+        if not waited or max(waited) > MH_TIMEOUT_MS:
+            raise AssertionError(f"multihost failure: member 0 waited {waited} ms")
+        print(f"multihost failure ({fault}): the gang stage restarted whole (attempt "
+              f"{gang[0].attempt}), rows exact, wall {wall:.3f} s; member 0's first attempt "
+              f"stopped waiting after {max(waited)} ms (the session's timeout), "
+              f"{time.time() - t1:.1f} s after the job's start [{tag}]", flush=True)
+    finally:
+        for p, _ in members:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        codes = []
+        for p, log in members:
+            try:
+                codes.append(p.wait(timeout=60))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes.append(p.wait(timeout=30))
+            log.close()
+        sched.stop()
+    if codes != [0] * len(members):
+        raise AssertionError(f"mesh group members exited {codes}")
+    print(f"multihost phase {time.time() - t_phase:.1f} s [{tag}]", flush=True)
+    return out
+
+
 def check_same_as_host(label: str, got, host) -> None:
     """Ints and strings equal to the host engine's, floats within 1e-6
     relative (it sums decimals in f64)."""
@@ -2444,8 +2768,8 @@ def report_runs(results: dict, prof: dict, card: str) -> None:
 
 
 def rehearse(data_dir: str, parts: int = 2) -> None:
-    """The hash, slice, windows, staged, distributed, surfaces and mesh
-    phases on the CPU over the TPC-H tables under
+    """The hash, slice, windows, staged, distributed, surfaces, mesh and
+    multihost phases on the CPU over the TPC-H tables under
     ``data_dir`` (the tests' SF 0.01, ``parts`` files per large table:
     ``tests/.data/torch_tpch_sf001``):
 
@@ -2473,6 +2797,7 @@ def rehearse(data_dir: str, parts: int = 2) -> None:
         results.update(run_distributed_phase("cpu", tables, "cpu", refs))
         results.update(run_surfaces_phase("cpu", tables, "cpu", refs))
         results.update(run_mesh_phase("cpu", tables, 0.01, "cpu", refs, results, 1 << 16))
+        results.update(run_multihost_phase("cpu", tables, 0.01, "cpu", refs, results))
     finally:
         GS.grouped_sums_multi = real
     report_runs(results, {}, "cpu")
@@ -2544,6 +2869,9 @@ def main() -> int:
 
     phase("mesh")
     results.update(run_mesh_phase("cuda", tables, SF, card, refs, results, 1 << 23))
+
+    phase("multihost")
+    results.update(run_multihost_phase("cuda", tables, SF, card, refs, results))
     report_runs(results, prof, card)
     if ESTIMATE_MISSES:
         for miss in ESTIMATE_MISSES:

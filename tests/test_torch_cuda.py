@@ -684,7 +684,6 @@ def test_mesh_q1_on_card_matches_one_shard_and_counts_threaded_launches(card, sf
     from ballista_tpu_torch.client.context import BallistaContext
     from ballista_tpu_torch.engine import torch_engine as TE
     from ballista_tpu_torch.ops import grouped_sums as GS
-    from ballista_tpu_torch.ops import kernels_torch as KT
 
     with open(os.path.join(REPO, "benchmarks", "queries", "q1.sql")) as f:
         sql = f.read()
@@ -700,9 +699,10 @@ def test_mesh_q1_on_card_matches_one_shard_and_counts_threaded_launches(card, sf
         TE.clear_caches()
         for _run in ("cold", "warm"):
             GS.launches = 0
-            calls = KT.grouped_sums_calls()
+            before = GS.thread_record()
             got = ctx.sql(sql).collect()
-            assert GS.launches == 8 and KT.grouped_sums_calls() - calls == 8
+            gained = GS.record_since(before)
+            assert GS.launches == 8 and gained["calls"] == 8 and gained["launches"] == 8
             m = ctx.last_engine_metrics
             assert m["op.FusedIciExchange.count"] == 16.0
             assert m.get("op.HostFallback.count", 0.0) == 0.0
@@ -817,3 +817,30 @@ def test_megastage_on_card_exact_while_another_thread_writes_the_default_stream(
         stop.set()
         writer.join()
         parallel.force_mesh_shards(prev)
+
+
+def test_mesh_group_on_the_card_matches_the_one_process_mesh(card, sf001_tables, tmp_path):
+    """Two member processes of 2 shards each, all four shards on the card,
+    exchanging through host memory over gloo (NCCL refuses two ranks on one
+    card): each member's slice of the fused aggregate and of the fused join
+    equals the matching shards of the one-process 4-shard program on the
+    card, bit for bit."""
+    import json
+
+    from test_torch_multihost import (
+        check_slices, port_agg_shards, port_join_shards, run_members, slices_of,
+    )
+    import torch_multihost_worker as W
+
+    data = os.path.dirname(sf001_tables["lineitem"])
+    out = str(tmp_path)
+    run_members(data, out, "agg,join,transport", device="cuda")
+    for pid in (0, 1):
+        with open(os.path.join(out, f"transport-{pid}.json")) as f:
+            transport, reason, on_card = json.load(f)
+        assert transport == "gloo" and "share card" in reason and on_card == 4
+    ctx = W._context(data)
+    final, partial = W.agg_nodes(W.plan_of(ctx, W.AGG_SQL))
+    check_slices(slices_of(out, "agg"), port_agg_shards(final, partial, "cuda"))
+    join = W.join_node(W.plan_of(ctx, W.JOIN_SQL, 0))
+    check_slices(slices_of(out, "join"), port_join_shards(join, "cuda"))

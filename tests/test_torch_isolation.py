@@ -78,6 +78,8 @@ def test_no_jax_or_reference_imports_and_all_port_imports_resolve():
     # and the device mesh's modules
     assert {"parallel/flagship.py", "parallel/mesh.py", "parallel/ici.py",
             "engine/megastage.py"} <= files
+    # and the mesh groups'
+    assert "parallel/multihost.py" in files
     bad = []
     for path in _port_sources():
         rel = os.path.relpath(path, REPO)
@@ -225,6 +227,33 @@ try:
 finally:
     parallel.force_mesh_shards(prev)
 print("MESH", 2)
+
+# the fused aggregate across a mesh group of two processes (this one and a
+# second, jax and the JAX package blocked in both), 2 shards each
+import socket, subprocess
+sys.path.insert(0, os.path.join({repo!r}, "tests"))
+import torch_multihost_worker as W
+with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    coordinator = "127.0.0.1:%d" % sock.getsockname()[1]
+group_dir = tempfile.mkdtemp()
+member = ("import runpy, sys; sys.modules['jax'] = None; sys.modules['ballista_tpu'] = None; "
+          "sys.argv = ['w', '1', '2', %r, %r, %r, 'agg']; "
+          "runpy.run_path(%r, run_name='__main__')" % (
+              coordinator, {data!r}, group_dir,
+              os.path.join({repo!r}, "tests", "torch_multihost_worker.py")))
+peer = subprocess.Popen([sys.executable, "-c", member], cwd={repo!r})
+sys.argv = ["w", "0", "2", coordinator, {data!r}, group_dir, "agg"]
+W.main()
+assert peer.wait(timeout=120) == 0
+import pyarrow.parquet as pq
+union = pa.concat_tables([pq.read_table(os.path.join(group_dir, "agg-%d.parquet" % i))
+                          for i in (0, 1)])
+want = ctx.sql(W.AGG_SQL).collect()
+keys = [(f.name, "ascending") for f in want.schema][:2]
+assert union.num_rows == want.num_rows == 4
+assert union.rename_columns(want.column_names).sort_by(keys).equals(want.sort_by(keys))
+print("GROUP", 2)
 assert not any(k == "jax" or k.startswith(("jax.", "ballista_tpu."))
                for k, v in sys.modules.items() if v is not None)
 """
@@ -235,8 +264,8 @@ def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     aggregate stage by stage through shuffle files, q1 through the port's
     scheduler and two executors by the remote client, EXPLAIN VERIFY and
     ANALYZE of q1, the REST API, scale controller, CLI and shim modules,
-    and q1 fused over a mesh of two shards, with JAX and the JAX package
-    unimportable."""
+    q1 fused over a mesh of two shards, and a fused aggregate across a mesh
+    group of two processes, with JAX and the JAX package unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", _Q1_BLOCKED.format(repo=REPO, data=torch_tpch_dir)],
@@ -245,6 +274,7 @@ def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ROWS 4" in proc.stdout and "PAGED" in proc.stdout and "STAGED" in proc.stdout
     assert "REMOTE" in proc.stdout and "EXPLAIN" in proc.stdout and "MESH 2" in proc.stdout
+    assert "GROUP 2" in proc.stdout
 
 
 def test_standalone_defaults_to_cuda_and_raises_without_it():

@@ -30,7 +30,7 @@ from ballista_tpu_torch.client.context import BallistaContext
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine import torch_engine as TE
 from ballista_tpu_torch.errors import ExecutionError
-from ballista_tpu_torch.ops import kernels_torch as KT
+from ballista_tpu_torch.ops import grouped_sums as GS
 from ballista_tpu_torch.parallel import flagship as FLAG
 from ballista_tpu_torch.parallel.ici import distributed_groupby, make_hash_exchange
 from ballista_tpu_torch.parallel.mesh import build_mesh, shards_per_card
@@ -247,9 +247,9 @@ def test_shard_threads_grouped_sums_calls_count_on_the_caller(shards, torch_tpch
         q1 = f.read()
     TE.clear_caches()
     for _run in ("cold", "warm"):
-        before = KT.grouped_sums_calls()
+        before = GS.thread_record()
         ctx.sql(q1).collect()
-        assert KT.grouped_sums_calls() - before == 16
+        assert GS.record_since(before)["calls"] == 16
         assert ctx.last_engine_metrics["op.FusedIciExchange.count"] == 16
 
 

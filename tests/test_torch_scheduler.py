@@ -188,7 +188,8 @@ def test_executor_refuses_a_backend_the_port_lacks(tmp_path):
 
     with pytest.raises(BallistaError, match="torch or numpy"):
         ExecutorProcess(ExecutorConfig(backend="jax", work_dir=str(tmp_path)))
-    with pytest.raises(BallistaError, match="mesh groups"):
+    # a mesh group needs its coordinator and a size of at least 2
+    with pytest.raises(BallistaError, match="mesh group 'g' needs"):
         ExecutorProcess(ExecutorConfig(mesh_group_id="g", device="cpu", work_dir=str(tmp_path)))
 
 
