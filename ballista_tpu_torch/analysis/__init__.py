@@ -5,7 +5,7 @@ logical plans before any executor sees them — Armbrust et al., SIGMOD '15.)
 
 * ``plan_verifier`` — rule-based invariant checks over logical plans, physical
   plans and shuffle-bounded stage graphs, run at scheduler submission time
-  (error findings block the job). EXPLAIN VERIFY is not ported yet.
+  (error findings block the job), and EXPLAIN VERIFY's rows.
 * ``concurrency`` — the runtime concurrency verifier (traced locks and
   guarded containers, off by default).
 

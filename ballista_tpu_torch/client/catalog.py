@@ -251,6 +251,55 @@ class Catalog:
         parts = [ColumnBatch.from_arrow(pajson.read_json(f)) for f in files]
         return self.register_batches(name, parts, parts[0].schema)
 
+    def register_avro(self, name: str, path: str) -> TableMeta:
+        """Avro object container files (reference: context.rs read_avro);
+        decoded by the built-in reader (utils/avro.py — null/deflate codecs,
+        records over primitives, nullable unions, date logical type).
+        Accepts a file, a directory, a glob, or an object-store URL."""
+        from ballista_tpu_torch.ops.batch import ColumnBatch
+        from ballista_tpu_torch.utils.avro import read_avro_bytes
+
+        try:
+            if "://" in path:
+                from ballista_tpu_torch.utils.object_store import GLOBAL_OBJECT_STORES
+
+                fs, p = GLOBAL_OBJECT_STORES.resolve(path)
+                import pyarrow.fs as pafs
+
+                info = fs.get_file_info(p)
+                if info.type == pafs.FileType.Directory:
+                    sel = pafs.FileSelector(p, recursive=False)
+                    files = sorted(
+                        f.path for f in fs.get_file_info(sel)
+                        if f.type == pafs.FileType.File and f.path.endswith(".avro")
+                    )
+                else:
+                    files = [p]
+                if not files:
+                    raise PlanningError(f"no avro files at {path!r}")
+                parts = []
+                for f in files:
+                    with fs.open_input_stream(f) as src:
+                        parts.append(ColumnBatch.from_arrow(read_avro_bytes(src.read())))
+            else:
+                if os.path.isdir(path):
+                    files = sorted(glob.glob(os.path.join(path, "*.avro")))
+                elif any(ch in path for ch in "*?["):
+                    files = sorted(glob.glob(path))
+                else:
+                    files = [path]
+                if not files:
+                    raise PlanningError(f"no avro files at {path!r}")
+                parts = [
+                    ColumnBatch.from_arrow(read_avro_bytes(open(f, "rb").read()))
+                    for f in files
+                ]
+        except PlanningError:
+            raise
+        except Exception as e:  # noqa: BLE001 - surface as a planning error
+            raise PlanningError(f"cannot read avro at {path!r}: {e}") from e
+        return self.register_batches(name, parts, parts[0].schema)
+
     def register_batches(self, name: str, partitions: list[Any], schema: Schema) -> TableMeta:
         from ballista_tpu_torch.plan.schema import DataType
 

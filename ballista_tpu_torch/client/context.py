@@ -319,6 +319,9 @@ class BallistaContext:
     def register_json(self, name: str, path: str) -> None:
         self.catalog.register_json(name, path)
 
+    def register_avro(self, name: str, path: str) -> None:
+        self.catalog.register_avro(name, path)
+
     def read_parquet(self, path: str, **kw) -> "DataFrame":
         name = f"__read_{len(self.catalog.tables)}"
         self.register_parquet(name, path, **kw)

@@ -347,7 +347,9 @@ _ENTRIES: dict[str, _Entry] = {
             "directory for the persistent XLA compilation cache: stage "
             "programs survive process restarts (executors recompile nothing "
             "after a crash/redeploy); falls back to the BALLISTA_XLA_CACHE_DIR "
-            "env var; empty disables",
+            "env var; empty disables. The JAX engine's key: the torch engine "
+            "compiles no stage program and ignores it (kept because settings "
+            "cross the wire between the two packages)",
             str,
             "",
         ),
@@ -585,7 +587,9 @@ _ENTRIES: dict[str, _Entry] = {
         ),
         _Entry(BALLISTA_GRPC_CLIENT_MAX_MESSAGE_SIZE, "gRPC max message bytes", int, 16 * 1024 * 1024),
         _Entry(BALLISTA_EXECUTOR_BACKEND, "stage kernel backend: torch|numpy", str, "torch"),
-        _Entry(BALLISTA_TPU_SHAPE_BUCKETS, "pad partition rows to power-of-two buckets", _bool, True),
+        _Entry(BALLISTA_TPU_SHAPE_BUCKETS,
+               "pad partition rows to power-of-two buckets (the JAX engine's key, "
+               "against recompiles: the torch engine ignores it)", _bool, True),
         _Entry(BALLISTA_TPU_ICI_SHUFFLE, "device-resident all_to_all shuffle when co-located", _bool, True),
         _Entry(
             BALLISTA_TPU_FUSE_EXCHANGE_MAX_ROWS,
@@ -637,7 +641,8 @@ _ENTRIES: dict[str, _Entry] = {
             "small-group-count segment sums/counts in device aggregates emit "
             "the Pallas grouped_sums kernel (VMEM-blocked masked reduce, no "
             "scatter) instead of XLA masked reductions; interpreter mode on "
-            "non-TPU backends",
+            "non-TPU backends. The JAX engine's key: the torch engine ignores "
+            "it and runs its grouped_sums CUDA kernel wherever k <= 32",
             _bool,
             False,
         ),

@@ -1,7 +1,7 @@
 """Observability: distributed query tracing and the flight recorder
-(histogram metrics, scheduler self-profiler, per-query resource ledgers).
-The Perfetto timeline export and EXPLAIN ANALYZE's renderer are not ported
-yet.
+(histogram metrics, scheduler self-profiler, per-query resource ledgers),
+the Perfetto timeline export (``perfetto.py``) and EXPLAIN ANALYZE's
+renderer (``explain.py``).
 
 Span propagation follows the OpenTelemetry shape the reference's operator
 ``MetricsSet`` machinery approximates: a root span opens at client submit,

@@ -185,17 +185,40 @@ def exact_decimal(vals: np.ndarray, valid: Optional[np.ndarray]):
 # ---- hash partitioning ------------------------------------------------------------
 def hash_partition_indices(batch: ColumnBatch, exprs: Sequence[Expr], n: int) -> np.ndarray:
     """Bucket id per row for a hash exchange (reference: BatchPartitioner,
-    shuffle_writer.rs:233-329). splitmix64 semantics, bit-identical to the
-    JAX package's bucketing."""
+    shuffle_writer.rs:233-329), by the host C++ kernel (``native/``):
+    splitmix64 semantics, bit-identical to the JAX package's bucketing and
+    to ``hash_partition_indices_plain``."""
+    from ballista_tpu_torch import native
+
+    canon = [canonical_int64(evaluate(e, batch))[0] for e in exprs]
+    return native.hash_buckets_native(canon, n).astype(np.int64)
+
+
+def hash_partition(batch: ColumnBatch, exprs: Sequence[Expr], n: int) -> list[ColumnBatch]:
+    """``batch`` split into ``n`` pieces by bucket, rows in their order, by
+    the host C++ kernel's counting sort."""
+    if batch.num_rows == 0:
+        return [batch] * n
+    from ballista_tpu_torch import native
+
+    order, bounds = native.partition_order_native(hash_partition_indices(batch, exprs, n), n)
+    return [batch.take(order[bounds[i] : bounds[i + 1]]) for i in range(n)]
+
+
+def hash_partition_indices_plain(batch: ColumnBatch, exprs: Sequence[Expr],
+                                 n: int) -> np.ndarray:
+    """numpy version of ``hash_partition_indices`` (the tests' reference)."""
     cols = [evaluate(e, batch) for e in exprs]
     key, _ = combined_key(cols)
     return (key.view(np.uint64) % np.uint64(n)).astype(np.int64)
 
 
-def hash_partition(batch: ColumnBatch, exprs: Sequence[Expr], n: int) -> list[ColumnBatch]:
+def hash_partition_plain(batch: ColumnBatch, exprs: Sequence[Expr],
+                         n: int) -> list[ColumnBatch]:
+    """numpy version of ``hash_partition`` (the tests' reference)."""
     if batch.num_rows == 0:
         return [batch] * n
-    buckets = hash_partition_indices(batch, exprs, n)
+    buckets = hash_partition_indices_plain(batch, exprs, n)
     order = np.argsort(buckets, kind="stable")
     sorted_b = buckets[order]
     bounds = np.searchsorted(sorted_b, np.arange(n + 1))

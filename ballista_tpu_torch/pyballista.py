@@ -6,15 +6,13 @@ with ``sql`` / ``read_csv`` / ``read_parquet`` / ``register_csv`` /
 ``register_parquet`` / ``execute_logical_plan``. This build is native Python,
 so the "binding" is a thin naming shim over BallistaContext — drop-in for
 PyBallista user code. A standalone ``SessionContext`` runs the torch engine
-on ``cuda`` unless ``device="cpu"`` is given; avro sources are not ported
-yet.
+on ``cuda`` unless ``device="cpu"`` is given.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from ballista_tpu_torch.client.context import BallistaContext, DataFrame
-from ballista_tpu_torch.errors import BallistaError
 
 
 class SessionContext:
@@ -41,10 +39,10 @@ class SessionContext:
         return self._ctx.read_json(path)
 
     def read_avro(self, path: str) -> DataFrame:
-        raise BallistaError(
-            f"cannot read {path!r}: avro sources are not ported to "
-            "ballista_tpu_torch yet (utils/avro.py)"
-        )
+        # a DataFrame over the registered table, as read_parquet gives
+        name = f"__read_{len(self._ctx.catalog.tables)}"
+        self._ctx.register_avro(name, path)
+        return self._ctx.table(name)
 
     def register_parquet(self, name: str, path: str) -> None:
         self._ctx.register_parquet(name, path)

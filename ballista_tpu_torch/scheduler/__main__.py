@@ -5,8 +5,10 @@ Reference analog: ``ballista-scheduler`` (``scheduler/src/bin/main.rs`` +
 reference's configure_me env support.
 
 ``--api-port N`` serves the REST API and web UI (``scheduler/api.py``) on
-port N. The durable cluster backends are not ported yet: the cluster state is
-the in-memory one.
+port N. ``--cluster-backend`` keeps the cluster state in memory (default) or
+durably: ``kv`` in the sqlite file ``--kv-path`` (an HA pair on one host
+shares it), ``grpc-kv`` or ``etcd`` at ``--kv-addr`` (``python -m
+ballista_tpu_torch.scheduler.kv_service`` serves both wires).
 """
 from __future__ import annotations
 
@@ -32,6 +34,14 @@ def main() -> None:
     p.add_argument("--executor-timeout-seconds", type=float, default=180.0)
     p.add_argument("--api-port", type=int, default=int(env("BALLISTA_SCHEDULER_API_PORT", "0")),
                    help="REST API and web UI port (0 = disabled)")
+    p.add_argument("--cluster-backend", choices=["memory", "kv", "grpc-kv", "etcd"],
+                   default=env("BALLISTA_SCHEDULER_CLUSTER_BACKEND", "memory"))
+    p.add_argument("--kv-addr", default=env("BALLISTA_SCHEDULER_KV_ADDR", None),
+                   help="host:port of the networked kv service (grpc-kv and etcd backends)")
+    p.add_argument("--kv-path", default=env("BALLISTA_SCHEDULER_KV_PATH", None),
+                   help="sqlite file for the kv backend (shared across an HA pair)")
+    p.add_argument("--job-lease-ttl-seconds", type=float,
+                   default=float(env("BALLISTA_SCHEDULER_JOB_LEASE_TTL", "60")))
     p.add_argument("--expiry-interval-seconds", type=float,
                    default=float(env("BALLISTA_SCHEDULER_EXPIRY_INTERVAL", "15")))
     p.add_argument("--plugin-dir", default=env("BALLISTA_SCHEDULER_PLUGIN_DIR", None),
@@ -79,6 +89,10 @@ def main() -> None:
         task_distribution=args.task_distribution,
         executor_timeout_seconds=args.executor_timeout_seconds,
         expire_dead_executors_interval_seconds=args.expiry_interval_seconds,
+        cluster_backend=args.cluster_backend,
+        kv_path=args.kv_path,
+        kv_addr=args.kv_addr,
+        job_lease_ttl_seconds=args.job_lease_ttl_seconds,
         obs_recorder_enabled=args.obs_recorder,
         obs_sample_interval_s=args.obs_sample_interval,
         obs_profiler=args.obs_profiler,

@@ -1244,6 +1244,13 @@ class ExecutionGraph:
                             or st.get("task_attempt", -1) != t.attempt
                         ):
                             continue  # genuinely stale (zombie attempt)
+                    elif t.status == "success":
+                        # seal-once: a second report of a sealed slot under
+                        # the same task_id — after an HA takeover the adopted
+                        # graph re-numbers a demoted task with the id its
+                        # first owner gave it, and that first attempt still
+                        # reports — must not propagate its pieces again
+                        continue
                     if st["status"] == "success":
                         t.status = "success"
                         t.locations = st.get("locations", [])

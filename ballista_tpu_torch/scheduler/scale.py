@@ -4,9 +4,9 @@ The port's copy of the JAX package's ``scheduler/scale.py`` (docs/elasticity.md)
 
 * **Signal** — :func:`compute_signal` derives a backlog/occupancy picture
   from scheduler state: queued task-slots vs live capacity, per-stage skew,
-  admission-queue depth. Served on ``GET /api/scale`` and as Prometheus
-  lines on ``/api/metrics`` (the KEDA external scaler that also serves it in
-  the JAX package is not ported yet).
+  admission-queue depth. Served three ways: the KEDA external scaler's
+  ``GetMetrics`` (``external_scaler.py``), ``GET /api/scale``, and
+  Prometheus lines on ``/api/metrics``.
 * **Controller** — :class:`ScaleController` turns the signal into actions
   under hysteresis (two consecutive same-direction ticks) and a cooldown
   (``ballista.scale.cooldown_s``): scale-up spawns executors through a

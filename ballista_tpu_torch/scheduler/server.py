@@ -11,22 +11,31 @@ scheduler_server/{mod.rs,grpc.rs,query_stage_scheduler.rs}``):
 * planning happens off the RPC thread (query_stage_scheduler.rs:101 spawn)
 * dead-executor expiry loop every 15s, 180s timeout (mod.rs:215-272)
 
-The port's copy keeps the in-memory cluster state only: the durable
-``kv``/``grpc-kv``/``etcd`` backends and the KEDA external scaler wait for
-their own slices, and asking for them raises. The elastic scale controller
-(``scheduler/scale.py``) is ported: it is ticked from the expiry loop, and
+Cluster state is in memory (``cluster_backend="memory"``) or durable:
+``kv`` (a sqlite file that an HA pair shares), ``grpc-kv`` (the networked
+``KvServer`` of ``scheduler/kv_service.py``) or ``etcd`` (etcd v3, served by
+the ``KvServer``'s gateway or a stock etcd). With a durable backend every job
+graph is persisted, the submitting scheduler holds a renewed lease on its
+jobs, and a standby adopts a RUNNING job whose lease lapsed
+(``_renew_and_take_over_jobs``). The KEDA external scaler
+(``scheduler/external_scaler.py``) shares the scheduler's port. The elastic
+scale controller (``scheduler/scale.py``) is ticked from the expiry loop, and
 ``drain_executor`` starts a drain-safe scale-down of one executor.
 Mesh-group gang scheduling (``_revive_gang_stages``) binds a stage whose
 collectives ``torch_engine.gang_collectives`` finds onto a complete group of
 torch executor processes (``parallel/multihost.py``) in one push-mode launch
 batch; a member's failure restarts the stage whole, and a ``GANG_UNFUSABLE``
-failure restarts it un-ganged. The JAX package's cross-scheduler gang
-markers live in the durable state store and wait with the HA backends.
+failure restarts it un-ganged. Under a durable backend a group is claimed
+through a cross-scheduler lease first (``_claim_gang_group``), so a standby
+never gang-launches onto a group whose last attempt may still be entering
+its program.
 """
 from __future__ import annotations
 
 import json
 import logging
+import os
+import tempfile
 import threading
 import time
 import uuid
@@ -251,12 +260,39 @@ class SchedulerServer:
         self._server: Optional[grpc.Server] = None
         self._stop = threading.Event()
         self.port: Optional[int] = None
-        if self.config.cluster_backend != "memory":
+        # optional durable job state (reference: sled/etcd-backed JobState)
+        self.state_store = None
+        if self.config.cluster_backend not in ("memory", "kv", "grpc-kv", "etcd"):
             raise BallistaError(
-                f"cluster_backend={self.config.cluster_backend!r}: the durable "
-                "job-state backends (kv, grpc-kv, etcd) are not ported to "
-                "ballista_tpu_torch yet; use cluster_backend='memory'"
+                f"unknown cluster_backend={self.config.cluster_backend!r}: "
+                "expected memory, kv, grpc-kv or etcd"
             )
+        if self.config.cluster_backend == "kv":
+            from ballista_tpu_torch.scheduler.state_store import JobStateStore, SqliteKV
+
+            path = self.config.kv_path or os.path.join(
+                tempfile.gettempdir(), "ballista-tpu-state.db")
+            self.state_store = JobStateStore(SqliteKV(path), self.scheduler_id)
+            self._restore_jobs()
+            self._restore_exchange_cache()
+        elif self.config.cluster_backend in ("grpc-kv", "etcd"):
+            # networked etcd tier: schedulers on different machines share
+            # ONLY this address (cluster/storage/etcd.rs:37; push watches).
+            # "grpc-kv" speaks the native wire to the built-in KvServer;
+            # "etcd" speaks etcd v3 — to the KvServer's EtcdGateway or to a
+            # STOCK etcd at the same address (the conformance seam)
+            from ballista_tpu_torch.scheduler.etcd_gateway import EtcdKV
+            from ballista_tpu_torch.scheduler.kv_service import GrpcKV
+            from ballista_tpu_torch.scheduler.state_store import JobStateStore
+
+            client_cls, default_addr = {
+                "grpc-kv": (GrpcKV, "localhost:50070"),
+                "etcd": (EtcdKV, "localhost:2379"),
+            }[self.config.cluster_backend]
+            addr = self.config.kv_addr or default_addr
+            self.state_store = JobStateStore(client_cls(addr), self.scheduler_id)
+            self._restore_jobs()
+            self._restore_exchange_cache()
 
     # ---- lifecycle -----------------------------------------------------------------
     def start(self, port: Optional[int] = None) -> int:
@@ -265,6 +301,11 @@ class SchedulerServer:
             options=GRPC_OPTIONS,
         )
         add_service(server, SCHEDULER_SERVICE, SCHEDULER_METHODS, self)
+        # KEDA autoscale signal multiplexed on the same port (reference:
+        # scheduler_process.rs single-port multiplexing)
+        from ballista_tpu_torch.scheduler.external_scaler import add_external_scaler
+
+        add_external_scaler(server, self)
         bind = f"{self.config.bind_host}:{port if port is not None else self.config.bind_port}"
         self.port = server.add_insecure_port(bind)
         server.start()
@@ -463,6 +504,11 @@ class SchedulerServer:
         # does not name, so future adoptions must miss (docs/serving.md)
         for key, gen in self.tasks.take_stale_exchange_keys():
             self.exchange_cache.invalidate_key(key, gen)
+        if self.state_store is not None:
+            for job_id in {st["job_id"] for st in statuses}:
+                g = self.tasks.get_job(job_id)
+                if g is not None:
+                    self._persist(g)
         for job_id, ev in events:
             if ev == "finished":
                 self.metrics.job_completed_total += 1
@@ -518,9 +564,10 @@ class SchedulerServer:
 
     def _finalize_ledger(self, g, status: str) -> None:
         """Job-completion rollup: freeze the graph's per-stage metric
-        accumulators into a QueryLedger, attach it to the graph, fold it
-        into the per-tenant Prometheus aggregates, and observe end-to-end
-        latency."""
+        accumulators into a QueryLedger, attach it to the graph (so
+        /api/job/{id} and EXPLAIN ANALYZE see it), persist it through the
+        state store, fold it into the per-tenant Prometheus aggregates, and
+        observe end-to-end latency."""
         from ballista_tpu_torch.obs.ledger import accumulate_tenant, build_ledger
 
         try:
@@ -560,6 +607,11 @@ class SchedulerServer:
                     "attrs": {"ledger": json.dumps(g.ledger)},
                 }],
             )
+        if self.state_store is not None:
+            try:
+                self.state_store.save_ledger(g.job_id, g.ledger)
+            except Exception:  # noqa: BLE001
+                log.exception("ledger persist failed for %s", g.job_id)
 
     # ---- RPC: query lifecycle -----------------------------------------------------------
     def execute_query(self, req: pb.ExecuteQueryParams, ctx) -> pb.ExecuteQueryResult:
@@ -956,6 +1008,22 @@ class SchedulerServer:
                 self._exchange_release(job_id)
                 self._admission_release(job_id)
                 return
+            self._persist(graph)
+            if self.state_store is not None:
+                # claim ownership so a standby scheduler can only take this
+                # job over after our lease lapses (renewed in the expiry
+                # loop). Fail OPEN on KV unavailability: an unreachable KV
+                # must degrade HA coverage, not fail a plannable job (the
+                # next expiry tick retries the lease)
+                try:
+                    self.state_store.try_acquire_job(
+                        job_id, self.config.job_lease_ttl_seconds
+                    )
+                except Exception:  # noqa: BLE001
+                    log.warning(
+                        "job lease acquire for %s failed (KV unavailable); "
+                        "continuing un-leased", job_id, exc_info=True,
+                    )
             planning_ms = (time.time() - t0) * 1000
             graph.planning_ms = planning_ms
             self.metrics.planning_time_ms_sum += planning_ms
@@ -1311,7 +1379,9 @@ class SchedulerServer:
         if not groups:
             return []
         # drop finished in-flight markers; a group with a live gang stage is
-        # unavailable (one collective program at a time per group)
+        # unavailable (one collective program at a time per group). Stage
+        # state is read under the TaskManager lock; the KV lease releases run
+        # AFTER it drops (durable-store I/O must not ride a hot lock)
         from ballista_tpu_torch.scheduler.execution_graph import STAGE_RUNNING
 
         expired_gids: list[str] = []
@@ -1323,9 +1393,12 @@ class SchedulerServer:
                     expired_gids.append(gid)
         for gid in expired_gids:
             del self._gang_inflight[gid]
+            self._release_gang_group(gid)
+        # still-running gangs keep their cross-scheduler lease alive
+        self._renew_gang_markers()
         # phase 1 (TaskManager lock): pick the gang-eligible fully-unbound
         # stages. Stage/graph state mutates under this lock, so the scan
-        # holds it
+        # holds it — but only the scan: the KV lease claims below are I/O
         candidates: list[tuple[ExecutionGraph, object]] = []
         with self.tasks._lock:
             for g in self.tasks.active_jobs():
@@ -1344,10 +1417,11 @@ class SchedulerServer:
                     if len(s.available_partitions()) != s.partitions:
                         continue  # partially bound/retried: not gang-safe
                     candidates.append((g, s))
-        # phase 2: re-check and bind under the TaskManager lock.
-        # ``_revive_lock`` serializes every push-mode binding pass, so between
-        # the phases the stage can only have LOST its fully-unbound shape to
-        # a status update — the re-check catches that.
+        # phase 2: claim a group OUTSIDE the TaskManager lock, then re-check
+        # and bind back under it. ``_revive_lock`` serializes every push-mode
+        # binding pass, so between the phases the stage can only have LOST
+        # its fully-unbound shape to a status update — the re-check catches
+        # that and the freshly claimed lease is released again.
         batches: list["SchedulerServer._LaunchBatch"] = []
         for g, s in candidates:
             for gid, members in groups.items():
@@ -1355,6 +1429,13 @@ class SchedulerServer:
                     continue
                 size = len(members)
                 if s.partitions < size or any(m.free_slots < 1 for m in members):
+                    continue
+                if not self._claim_gang_group(gid):
+                    # another scheduler's lease holds this group: its gang
+                    # attempt may still be entering its collective program
+                    # — wait for the owner to release or its TTL to lapse;
+                    # the claim is atomic, so two live
+                    # schedulers can never both win the group
                     continue
                 by_exec: Optional[dict[str, list[TaskDescriptor]]] = None
                 with self.tasks._lock:
@@ -1368,6 +1449,7 @@ class SchedulerServer:
                                 by_exec.setdefault(m.executor_id, []).append(d)
                         s.gang = True
                 if by_exec is None:
+                    self._release_gang_group(gid)
                     break  # stage no longer gang-safe: stop trying groups
                 self._gang_inflight[gid] = (g.job_id, s.stage_id, s.attempt)
                 tag = f"{g.job_id}-{s.stage_id}-{s.attempt}"
@@ -1386,6 +1468,52 @@ class SchedulerServer:
                 batches.append((True, launches))
                 break
         return batches
+
+    # ---- persisted gang-in-flight markers (HA) ----------------------------------
+    # The in-memory _gang_inflight map protects a mesh group within ONE
+    # scheduler process; these KV LEASES extend the protection across HA
+    # peers: a scheduler must not gang-launch onto a group whose current
+    # lease belongs to another (possibly dead) scheduler — a group's members
+    # must enter their collective programs in one order. The lease primitive
+    # makes the claim ATOMIC (two live schedulers cannot both win a group),
+    # and it is RENEWED every revive tick while the gang runs, so a long gang
+    # is protected indefinitely; only a dead owner's lease lapses (TTL).
+    _GANG_RELEASE_TTL = 0.001  # same-owner re-lock with ~zero ttl == release
+
+    def _claim_gang_group(self, gid: str) -> bool:
+        if self.state_store is None:
+            return True
+        try:
+            return self.state_store.kv.lock(
+                "GangInflight", gid, self.scheduler_id,
+                self.config.gang_inflight_ttl_seconds,
+            )
+        except Exception:  # noqa: BLE001 - unreachable KV: fail open (local
+            # bookkeeping still protects this process)
+            log.warning("gang lease claim failed for group %s", gid, exc_info=True)
+            return True
+
+    def _renew_gang_markers(self) -> None:
+        if self.state_store is None:
+            return
+        for gid in self._gang_inflight:
+            try:
+                self.state_store.kv.lock(
+                    "GangInflight", gid, self.scheduler_id,
+                    self.config.gang_inflight_ttl_seconds,
+                )
+            except Exception:  # noqa: BLE001
+                log.warning("gang lease renewal failed for %s", gid, exc_info=True)
+
+    def _release_gang_group(self, gid: str) -> None:
+        if self.state_store is None:
+            return
+        try:
+            self.state_store.kv.lock(
+                "GangInflight", gid, self.scheduler_id, self._GANG_RELEASE_TTL
+            )
+        except Exception:  # noqa: BLE001
+            log.warning("gang lease release failed for %s", gid, exc_info=True)
 
     @staticmethod
     def _gang_eligible_impl(plan, props: dict[str, str]) -> bool:
@@ -1548,6 +1676,7 @@ class SchedulerServer:
             # in-flight readers are covered by the spliced graph inputs the
             # drain's executor_output_referenced check already sees
             self.exchange_cache.invalidate_executor(executor_id)
+            self._persist_exchange_cache()
             log.info("drain initiated for executor %s", executor_id)
         return ok
 
@@ -1606,6 +1735,7 @@ class SchedulerServer:
         # cached exchange whose pieces live on a failing host would convert
         # a cheap miss into a likely mid-job lineage rollback — invalidate
         self.exchange_cache.invalidate_executor(executor_id)
+        self._persist_exchange_cache()
         n = self.tasks.executor_quarantined(executor_id)
         if n:
             log.info(
@@ -1756,6 +1886,8 @@ class SchedulerServer:
                 ttl_s=entry_ttl,
             )
             registered = self.exchange_cache.register(entry) or registered
+        if registered:
+            self._persist_exchange_cache()
 
     def _exchange_release(self, job_id: str) -> None:
         """A consumer job ended (any outcome): release its leases so the
@@ -1784,6 +1916,29 @@ class SchedulerServer:
             self._push_pool.submit(
                 self.clean_job_data, pb.CleanJobDataParams(job_id=job_id), None
             )
+
+    def _persist_exchange_cache(self) -> None:
+        if self.state_store is None:
+            return
+        try:
+            self.state_store.save_exchange_cache(self.exchange_cache.to_json())
+        except Exception:  # noqa: BLE001 - durability is best-effort
+            log.debug("exchange cache persist failed", exc_info=True)
+
+    def _restore_exchange_cache(self) -> None:
+        """HA restart: reload registered entries (reader refcounts drop to
+        zero — the old process's consumers are gone; restored graphs simply
+        re-run). Entries naming executors that never re-register are
+        invalidated on the usual loss paths."""
+        try:
+            n = self.exchange_cache.load_json(
+                self.state_store.load_exchange_cache()
+            )
+        except Exception:  # noqa: BLE001 - a flaky KV must not block startup
+            log.warning("exchange cache restore failed", exc_info=True)
+            return
+        if n:
+            log.info("restored %d exchange-cache entries from durable state", n)
 
     def serving_stats(self) -> dict:
         """Serving-layer counters for /api/serving, /api/metrics and the UI:
@@ -1997,11 +2152,98 @@ class SchedulerServer:
         # its cached exchange pieces died with it: future adoptions must
         # miss; consumers mid-read fall back via FetchFailed lineage
         self.exchange_cache.invalidate_executor(executor_id)
+        self._persist_exchange_cache()
         n = self.tasks.executor_lost(executor_id)
         if n:
             log.info("reset %d tasks from lost executor %s", n, executor_id)
         if self.config.scheduling_policy == "push":
             self._push_pool.submit(self.revive_offers)
+
+    def _renew_and_take_over_jobs(self) -> None:
+        """HA: renew leases on owned jobs, then adopt any RUNNING job whose
+        owner stopped renewing — a crashed scheduler's jobs resume here from
+        the persisted graph (in-flight tasks were demoted on encode and simply
+        re-run; completed shuffle output on executors is the durable artifact).
+        Reference: try_acquire_job (cluster/mod.rs:349-352) + kv.rs:512."""
+        ttl = self.config.job_lease_ttl_seconds
+        owned = {g.job_id for g in self.tasks.active_jobs()}
+        for job_id in owned:
+            if not self.state_store.try_acquire_job(job_id, ttl):
+                # lease lost (we stalled past ttl and a standby adopted the
+                # job): stop driving it — two owners binding tasks for one
+                # job is the split-brain the lease exists to prevent
+                log.warning("lost lease on job %s; releasing local ownership", job_id)
+                self.tasks.release_job(job_id)
+                # no local finished/failed event will ever fire for a
+                # released job: free its admission slot here or the gate
+                # leaks one concurrency unit per takeover (and its exchange
+                # leases, or the cache pins would never drain)
+                self._exchange_release(job_id)
+                self._admission_release(job_id)
+        adopted = 0
+        for job_id in self.state_store.list_jobs():
+            if job_id in owned or self.tasks.get_job(job_id) is not None:
+                continue
+            raw = self.state_store.kv.get("JobStatus", job_id)
+            if raw is None or json.loads(raw.decode()).get("status") != RUNNING:
+                continue
+            if not self.state_store.try_acquire_job(job_id, ttl):
+                continue  # owner alive (lease held) or lost the race
+            g = self.state_store.load_job(job_id)
+            if g is None or g.status != RUNNING:
+                continue
+            self.tasks.submit_job(g)
+            adopted += 1
+            log.info("took over running job %s (owner lease expired)", job_id)
+        if adopted and self.config.scheduling_policy == "push":
+            self._push_pool.submit(self.revive_offers)
+
+    def _persist(self, graph) -> None:
+        if self.state_store is None:
+            return
+        try:
+            from ballista_tpu_torch.scheduler.state_store import graph_to_json
+
+            # snapshot under the TaskManager lock (a live graph's stages
+            # mutate under it); the KV write runs after the lock drops so
+            # durable-store latency never extends control-plane hold times
+            with self.tasks._lock:
+                graph_payload = json.dumps(graph_to_json(graph)).encode()
+                status_payload = json.dumps(
+                    {"status": graph.status, "error": graph.error}
+                ).encode()
+            self.state_store.save_job_json(
+                graph.job_id, graph_payload, status_payload
+            )
+        except Exception as e:  # noqa: BLE001 - e.g. memory-table plans aren't durable
+            log.debug("persist of %s skipped: %s", graph.job_id, e)
+
+    def _restore_jobs(self) -> None:
+        """Recover active jobs after a restart (reference: try_acquire_job
+        ownership transfer + graph decode with Running demoted to Resolved)."""
+        from ballista_tpu_torch.scheduler.execution_graph import RUNNING as JOB_RUNNING
+
+        restored = 0
+        try:
+            job_ids = self.state_store.list_jobs()
+        except Exception as e:  # noqa: BLE001 - a flaky KV at startup must
+            # not crash the scheduler; the expiry loop's takeover scan
+            # retries the restore once the KV is reachable again
+            log.warning("job restore scan failed (KV unavailable): %s", e)
+            return
+        for job_id in job_ids:
+            try:
+                if not self.state_store.try_acquire_job(job_id):
+                    continue
+                g = self.state_store.load_job(job_id)
+            except Exception as e:  # noqa: BLE001
+                log.warning("could not restore job %s: %s", job_id, e)
+                continue
+            if g is not None and g.status == JOB_RUNNING:
+                self.tasks.submit_job(g)
+                restored += 1
+        if restored:
+            log.info("restored %d active jobs from durable state", restored)
 
     def _expiry_loop(self):
         last_resubmit = time.time()
@@ -2012,6 +2254,11 @@ class SchedulerServer:
             ):
                 log.warning("executor %s expired; removing", e.executor_id)
                 self._remove_executor(e.executor_id)
+            if self.state_store is not None:
+                try:
+                    self._renew_and_take_over_jobs()
+                except Exception:  # noqa: BLE001 - HA scan must not kill the loop
+                    log.exception("lease renewal / takeover scan failed")
             try:
                 # elastic controller tick: progress drains; scale decisions
                 # when enabled (hysteresis/cooldown inside)
@@ -2021,7 +2268,8 @@ class SchedulerServer:
             try:
                 # exchange-cache TTL sweep: expiry releases the producer
                 # jobs' deferred shuffle-dir cleanups via the unpin callback
-                self.exchange_cache.expire()
+                if self.exchange_cache.expire():
+                    self._persist_exchange_cache()
             except Exception:  # noqa: BLE001 - cache upkeep must not kill it
                 log.exception("exchange cache expiry failed")
             # optional stuck-job re-kick (reference: job_resubmit_interval_ms)

@@ -17,7 +17,12 @@ Phases, each of which passes or ends the run with a non-zero exit:
              tables in 4 parquet parts, generated from a seed by the port's
              own ``models/tpch.py``); the int64 splitmix64 and
              ``hash_bucket_dev`` on ``cuda`` bit-identical to ``kernels_np``
-             (the host engine's shuffle bucketing) over SF1's orders.
+             (the host engine's shuffle bucketing) over SF1's orders; SF1's
+             lineitem split into NATIVE_BUCKETS by ``l_orderkey`` and by
+             q3's aggregate key with the host C++ partitioner
+             (``native/partition.cpp``, which every shuffle write uses) and
+             with its numpy version: buckets and pieces equal, both times
+             printed with the host CPU's model.
 5. slice   — TPC-H through ``BallistaContext.standalone()`` on ``cuda``,
              on five paths (``PATHS``): the default, fused path (q1, q6, q3,
              q5, q12, cold then warm; a final aggregate over an exchange runs
@@ -102,7 +107,18 @@ Phases, each of which passes or ends the run with a non-zero exit:
              OS processes against a scheduler in this process: q3 and q5
              once each, rows exact, device stages as above, then SIGTERM:
              both exit 0 and their work dirs are gone. Every run prints its
-             wall, stages, tasks and shuffle bytes.
+             wall, stages, tasks and shuffle bytes. (1) also serves the
+             flightsql phase (``run_flightsql_phase``): the port's Flight
+             SQL service over the same scheduler, the eight tables
+             registered through its ``register_parquet`` action, q1, q3 and
+             q5 as ``CommandStatementQuery`` cold (leaf caches and exchange
+             cache cleared) then warm, fetched from the executors'
+             endpoints: rows exact, zero host fallbacks, the scheduler's
+             ``do_get`` serving none of them, launches equal to the graph's
+             calls (above 0 for cold q1); a prepared q1 executed twice and
+             closed (its plan-cache pin 1, then 0); a second service with
+             ``ballista.serving.result_cache=true`` whose repeated q1
+             submits no job and returns the same rows.
 9. surfaces — inspecting and operating a job (``run_surfaces_phase``):
              (a) standalone EXPLAIN ANALYZE of q1, q3 and q5 on ``cuda``,
              cold (after ``clear_caches()``) and warm, beside plain warm
@@ -181,7 +197,24 @@ Phases, each of which passes or ends the run with a non-zero exit:
              and member 0 stops waiting after the session's MH_TIMEOUT_MS.
              Every run prints its wall beside the distributed phase's, and the
              cross-process rounds, bytes and seconds the members logged.
-12. timing — grouped_sums at one column (2^21 rows, k = 12, int64), at
+12. avro   — the first AVRO_ROWS lineitem rows with q1's and q6's columns
+             written by the port's ``write_avro`` and registered with
+             ``register_avro`` in a standalone context on ``cuda``: q1 and
+             q6 exact against an int64 reference over the same rows and the
+             host engine, equal to the same rows through ``register_arrow``,
+             zero host fallbacks, q1 launching grouped_sums; the write and
+             decode rates (host code, printed with the CPU's model).
+13. ha     — schedulers A and B on the ``kv`` backend sharing one sqlite
+             file (job leases of HA_LEASE_S), two torch executors on
+             ``cuda`` with 1 task slot each naming both: SF1 q1 submitted
+             to A, A stopped once a task has started, B adopts the job and
+             finishes it; rows exact, zero host fallbacks, grouped_sums
+             launches equal to the calls the task statuses both schedulers
+             received report; the seconds from A's stop to B's adoption and
+             to the job's end. Then q3 through a scheduler on the ``etcd``
+             backend against an in-process ``KvServer``: rows exact, the job
+             persisted there.
+14. timing — grouped_sums at one column (2^21 rows, k = 12, int64), at
              the largest and smallest stages of q1's warm run (the fused
              program's partial aggregate and final merge), at the largest
              stage of its unfused run, and at a
@@ -475,17 +508,9 @@ def _lookup(index: np.ndarray, keys: np.ndarray, fill) -> np.ndarray:
     return np.where(inside, index[np.where(inside, keys, 0)], fill)
 
 
-def exact_reference(tables: dict) -> dict:
-    """q1, q6, q3, q5 and q12 computed exactly, independently of the port: numpy
-    int64 sums of hundredths (revenue: price * (100 - discount), in units of
-    10^-4) over the parquet files, joins as dense key lookups (every join
-    key of q3 and q5 is a primary key on one side), converted to the
-    nearest double once at the end (Python's int / int rounds correctly).
-    Returns {query: {column: list of values in ORDER BY order}}."""
-    li = _read(tables, "lineitem", [
-        "l_orderkey", "l_suppkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
-        "l_returnflag", "l_linestatus", "l_shipdate", "l_commitdate", "l_receiptdate",
-        "l_shipmode"])
+def exact_q1_q6(li: dict) -> tuple:
+    """q1 and q6 computed exactly (as ``exact_reference`` computes them)
+    over lineitem's columns ``li`` (``_read``'s form): (q1, q6)."""
     days = li["l_shipdate"]
     qty, price, disc, tax = (_hundredths(li[c]) for c in
                              ("l_quantity", "l_extendedprice", "l_discount", "l_tax"))
@@ -511,6 +536,24 @@ def exact_reference(tables: dict) -> dict:
     m = ((days >= _day("1994-01-01")) & (days < _day("1995-01-01"))
          & (disc >= 5) & (disc <= 7) & (qty < 2400))
     q6 = {"revenue": [int((price[m] * disc[m]).sum()) / 10**4]}
+    return q1, q6
+
+
+def exact_reference(tables: dict) -> dict:
+    """q1, q6, q3, q5 and q12 computed exactly, independently of the port: numpy
+    int64 sums of hundredths (revenue: price * (100 - discount), in units of
+    10^-4) over the parquet files, joins as dense key lookups (every join
+    key of q3 and q5 is a primary key on one side), converted to the
+    nearest double once at the end (Python's int / int rounds correctly).
+    Returns {query: {column: list of values in ORDER BY order}}."""
+    li = _read(tables, "lineitem", [
+        "l_orderkey", "l_suppkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+        "l_returnflag", "l_linestatus", "l_shipdate", "l_commitdate", "l_receiptdate",
+        "l_shipmode"])
+    q1, q6 = exact_q1_q6(li)
+    days = li["l_shipdate"]
+    price, disc = _hundredths(li["l_extendedprice"]), _hundredths(li["l_discount"])
+    rev = price * (100 - disc)
 
     cu = _read(tables, "customer", ["c_custkey", "c_mktsegment", "c_nationkey"])
     od = _read(tables, "orders", ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"])
@@ -669,6 +712,76 @@ def check_hash_buckets(device, tables: dict) -> None:
     print(f"hash: splitmix64 on {len(x)} values and hash_bucket_dev on {batch.num_rows} "
           f"orders rows ({len(keysets)} key sets x 3 bucket counts) bit-identical to "
           "kernels_np", flush=True)
+
+
+NATIVE_BUCKETS = 16
+
+
+def cpu_model() -> str:
+    """The host CPU's model (``/proc/cpuinfo``), its architecture and its
+    count: the partitioner and the avro codec are host code, so their times
+    belong to this CPU, not to the card."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    name = next((fields[k] for k in ("model name", "cpu model", "hardware", "cpu part")
+                 if fields.get(k)), "model not in /proc/cpuinfo")
+    return f"{name} ({platform.machine()}), {os.cpu_count()} CPUs"
+
+
+def check_native_partition(tables: dict, tag: str) -> None:
+    """SF1's lineitem bucketed into NATIVE_BUCKETS by ``l_orderkey`` (the
+    join exchange of q3 and q12) and by q3's aggregate key (``l_orderkey,
+    o_orderdate, o_shippriority``, over lineitem joined to its orders) with
+    the host C++ partitioner (``kernels_np.hash_partition_indices`` and
+    ``hash_partition``, ``native/partition.cpp``) and with their numpy
+    versions: buckets and pieces equal. Prints both times with the card line
+    and the host CPU's model."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from ballista_tpu_torch import native
+    from ballista_tpu_torch.ops import kernels_np as KNP
+    from ballista_tpu_torch.ops.batch import ColumnBatch
+    from ballista_tpu_torch.plan.expr import Col
+
+    print(f"hash: host partitioner {native.library_path()}", flush=True)
+    li = pq.read_table(tables["lineitem"], columns=["l_orderkey", "l_extendedprice",
+                                                    "l_shipdate"])
+    od = _read(tables, "orders", ["o_orderkey", "o_orderdate", "o_shippriority"])
+    okeys = li.column("l_orderkey").to_numpy()
+    date = _index(od["o_orderkey"], od["o_orderdate"], -1)[okeys]
+    prio = _index(od["o_orderkey"], od["o_shippriority"].astype(np.int64), -1)[okeys]
+    if (date < 0).any():
+        raise AssertionError("hash: a lineitem row without its order")
+    batch = ColumnBatch.from_arrow(li.append_column("o_orderdate", pa.array(
+        date.astype(np.int32), pa.date32())).append_column("o_shippriority", pa.array(prio)))
+    for keys in (("l_orderkey",), ("l_orderkey", "o_orderdate", "o_shippriority")):
+        exprs = [Col(k) for k in keys]
+        times = {}
+        for label, fn in (("native buckets", KNP.hash_partition_indices),
+                          ("plain buckets", KNP.hash_partition_indices_plain),
+                          ("native pieces", KNP.hash_partition),
+                          ("plain pieces", KNP.hash_partition_plain)):
+            t0 = time.perf_counter()
+            times[label] = (fn(batch, exprs, NATIVE_BUCKETS), time.perf_counter() - t0)
+        if not np.array_equal(times["native buckets"][0], times["plain buckets"][0]):
+            raise AssertionError(f"hash: native buckets by {keys} differ from the plain ones")
+        got, want = times["native pieces"][0], times["plain pieces"][0]
+        if len(got) != NATIVE_BUCKETS or any(
+                not g.to_arrow().equals(w.to_arrow()) for g, w in zip(got, want)):
+            raise AssertionError(f"hash: native pieces by {keys} differ from the plain ones")
+        print(f"hash: lineitem {batch.num_rows} rows by ({', '.join(keys)}) into "
+              f"{NATIVE_BUCKETS} buckets, equal to the plain version: "
+              + ", ".join(f"{label} {t:.3f} s" for label, (_, t) in times.items())
+              + f" [{tag}] host CPU: {cpu_model()}", flush=True)
 
 
 @contextlib.contextmanager
@@ -1472,7 +1585,8 @@ def job_summary(graph) -> dict:
             "adopted": len(graph.stages) - len(ran), "shuffle_bytes": shuffle,
             "metrics": metrics, "no_device": no_device,
             "calls": int(metrics.get("op.GroupedSums.calls", 0.0)),
-            "budget": graph.memory_report.budget_bytes if graph.memory_report else 0}
+            # a graph adopted from the durable state store carries no report
+            "budget": getattr(getattr(graph, "memory_report", None), "budget_bytes", 0)}
 
 
 def span_device(spans: list) -> dict:
@@ -1598,6 +1712,7 @@ def run_distributed_phase(device: str, tables: dict, tag: str, refs: tuple) -> d
                                  f"engines detect {detected}")
         print(f"admission budget for {kind!r}: {admitted} bytes; detected on the card "
               f"{detected} bytes [{tag}]", flush=True)
+        out.update(run_flightsql_phase(cluster, device, tables, tag, refs))
     finally:
         cluster.stop()
 
@@ -1648,6 +1763,200 @@ def run_distributed_phase(device: str, tables: dict, tag: str, refs: tuple) -> d
         raise AssertionError(f"executor work dirs left behind: {left}")
     print(f"2 executor processes stopped by SIGTERM, exit codes {codes}, work dirs removed",
           flush=True)
+    return out
+
+
+# ---- 8b. flightsql -------------------------------------------------------------------
+FLIGHTSQL_QUERIES = ("q1", "q3", "q5")
+
+
+def check_executors_report(sched, n: int, device: str, label: str) -> None:
+    """``n`` live executors registered with ``sched``, each reporting the
+    card's name (``cpu`` off the card) as its device kind."""
+    kind = torch.cuda.get_device_name(0) if device.startswith("cuda") else "cpu"
+    kinds = [e.device_kind for e in sched.cluster.alive_executors()]
+    if len(kinds) != n or set(kinds) != {kind}:
+        raise AssertionError(f"{label}: executors report {kinds}, expected {n} x {kind!r}")
+
+
+def flight_service(cluster, **kw):
+    """The port's Flight SQL service over ``cluster``'s scheduler, counting
+    what its own ``do_get`` serves and the jobs its statements submit."""
+    from ballista_tpu_torch.scheduler.flight_sql import SchedulerFlightService
+
+    class Service(SchedulerFlightService):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.gets, self.jobs = 0, []
+
+        def do_get(self, context, ticket):
+            self.gets += 1
+            return super().do_get(context, ticket)
+
+        def _run(self, sql, timeout_s=None):
+            status = super()._run(sql, timeout_s)
+            self.jobs.append(status.job_id)
+            return status
+
+    svc = Service(cluster.scheduler, "127.0.0.1", 0, **kw)
+    svc.serve_background()
+    return svc
+
+
+def flight_fetch(client, descriptor):
+    """(FlightInfo, the result table) of a statement: each endpoint fetched
+    from the executor Flight server its first location names, or, with no
+    location (a sealed result), from the service ``client`` talks to."""
+    import pyarrow as pa
+    import pyarrow.flight as flight
+
+    info = client.get_flight_info(descriptor)
+    parts = []
+    for ep in info.endpoints:
+        if not ep.locations:
+            parts.append(client.do_get(ep.ticket).read_all())
+            continue
+        direct = flight.connect(ep.locations[0].uri.decode())
+        try:
+            parts.append(direct.do_get(ep.ticket).read_all())
+        finally:
+            direct.close()
+    return info, pa.concat_tables(parts).cast(info.schema)
+
+
+def run_flightsql_phase(cluster, device: str, tables: dict, tag: str, refs: tuple) -> dict:
+    """The flightsql phase, over the distributed phase's in-process cluster
+    (two torch executors on ``device``): the eight tables registered through
+    the ``register_parquet`` action; q1, q3 and q5 as
+    ``CommandStatementQuery``, cold (leaf caches and the scheduler's exchange
+    cache cleared) then warm, fetched from the executors' endpoints: rows
+    exact, zero host fallbacks, the scheduler's ``do_get`` serving nothing,
+    grouped_sums launches equal to the calls the job graph reports (above 0
+    for cold q1); a prepared q1 run twice then closed (its plan-cache pin 1
+    then 0); a second service with ``ballista.serving.result_cache=true``,
+    whose repeated q1 submits no job and returns the same rows. Returns
+    {("flightsql", query, run): the run's record}."""
+    import pyarrow.flight as flight
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import torch_engine as TE
+    from ballista_tpu_torch.proto import flight_sql_pb2 as fsql
+    from ballista_tpu_torch.scheduler.flight_sql import _try_unpack, pack_any
+    from ballista_tpu_torch.scheduler.serving import fingerprint_sql
+
+    phase("flightsql")
+    t_phase = time.time()
+    exact, want = refs
+    on_card = device.startswith("cuda")
+    sched = cluster.scheduler
+    check_executors_report(sched, 2, device, "flightsql")
+    out = {}
+    svc = flight_service(cluster)
+    client = flight.connect(f"grpc://127.0.0.1:{svc.port}")
+    try:
+        t0 = time.time()
+        for name, location in tables.items():
+            list(client.do_action(flight.Action("register_parquet", json.dumps(
+                {"name": name, "path": os.path.abspath(location)}).encode())))
+        print(f"flightsql: {len(tables)} tables registered through the register_parquet "
+              f"action in {time.time() - t0:.3f} s", flush=True)
+        TE.clear_caches()
+        for e in cluster.executors:
+            sched.exchange_cache.invalidate_executor(e.executor_id)
+        for q in FLIGHTSQL_QUERIES:
+            sql, expect = want[q]
+            cmd = flight.FlightDescriptor.for_command(
+                pack_any(fsql.CommandStatementQuery(query=sql)))
+            for run in ("cold", "warm"):
+                with counting() as rec:
+                    t0 = time.time()
+                    info, table = flight_fetch(client, cmd)
+                    wall = time.time() - t0
+                if not all(ep.locations for ep in info.endpoints):
+                    raise AssertionError(f"flightsql {q} {run}: an endpoint not at an executor")
+                job = job_summary(sched.tasks.get_job(svc.jobs[-1]))
+                report_job(f"flightsql {q} {run}", wall, job, rec["launches"], tag)
+                presums = rec["presums"] + (
+                    out[("flightsql", q, "cold")]["presums"] if job["adopted"] else [])
+                check_result(table, expect, exact[q], q, presums)
+                check_job(f"flightsql {q} {run}", job)
+                if on_card and rec["launches"] != job["calls"]:
+                    raise AssertionError(f"flightsql {q} {run}: {rec['launches']} grouped_sums "
+                                         f"launches, the graph's tasks made {job['calls']} calls")
+                if q == "q1" and run == "cold" and job["calls"] <= 0:
+                    raise AssertionError("flightsql q1 cold: grouped_sums never called")
+                print(f"flightsql {q} {run}: {len(info.endpoints)} endpoints, all at the "
+                      f"executors; wall {wall:.3f} s [{tag}]", flush=True)
+                out[("flightsql", q, run)] = {
+                    "table": table, "wall": wall, "launches": rec["launches"],
+                    "shapes": rec["shapes"], "presums": rec["presums"],
+                    "metrics": job["metrics"], "job": job}
+        if svc.gets:
+            raise AssertionError(f"flightsql: the scheduler's do_get served {svc.gets} "
+                                 "tickets of a statement")
+        print("flightsql: the scheduler's do_get served 0 tickets, 0 bytes of the "
+              "statements' results", flush=True)
+
+        # a prepared q1: executed twice by handle, then closed
+        sql, expect = want["q1"]
+        fp = fingerprint_sql(sql)
+        (raw,) = list(client.do_action(flight.Action("CreatePreparedStatement", pack_any(
+            fsql.ActionCreatePreparedStatementRequest(query=sql)))))
+        name, prep = _try_unpack(raw.body.to_pybytes())
+        pins = [sched.plan_cache.pin_count(fp)]
+        cmd = flight.FlightDescriptor.for_command(pack_any(fsql.CommandPreparedStatementQuery(
+            prepared_statement_handle=prep.prepared_statement_handle)))
+        walls = []
+        for _ in range(2):
+            with counting() as rec:
+                t0 = time.time()
+                _, table = flight_fetch(client, cmd)
+                walls.append(time.time() - t0)
+            check_result(table, expect, exact["q1"], "q1",
+                         rec["presums"] + out[("flightsql", "q1", "cold")]["presums"])
+        list(client.do_action(flight.Action("ClosePreparedStatement", pack_any(
+            fsql.ActionClosePreparedStatementRequest(
+                prepared_statement_handle=prep.prepared_statement_handle)))))
+        pins.append(sched.plan_cache.pin_count(fp))
+        if name != "ActionCreatePreparedStatementResult" or pins != [1, 0]:
+            raise AssertionError(f"flightsql prepared q1: {name}, plan-cache pins {pins}")
+        print(f"flightsql prepared q1: walls {walls[0]:.3f} / {walls[1]:.3f} s, plan-cache "
+              f"pin {pins[0]} while open, {pins[1]} after close [{tag}]", flush=True)
+    finally:
+        client.close()
+        svc.shutdown()
+
+    # the sealed-result tier: a repeated statement submits no job
+    svc = flight_service(cluster, config=BallistaConfig(
+        {"ballista.serving.result_cache": "true"}))
+    client = flight.connect(f"grpc://127.0.0.1:{svc.port}")
+    try:
+        for name, location in tables.items():
+            list(client.do_action(flight.Action("register_parquet", json.dumps(
+                {"name": name, "path": os.path.abspath(location)}).encode())))
+        cmd = flight.FlightDescriptor.for_command(
+            pack_any(fsql.CommandStatementQuery(query=want["q1"][0])))
+        first, walls = None, []
+        for i in range(2):
+            submitted = sched.metrics.job_submitted_total
+            t0 = time.time()
+            _, table = flight_fetch(client, cmd)
+            walls.append(time.time() - t0)
+            jobs = sched.metrics.job_submitted_total - submitted
+            if i == 0:
+                first = table
+                if jobs != 1:
+                    raise AssertionError(f"flightsql result cache: first q1 submitted {jobs} jobs")
+            elif jobs != 0 or not table.equals(first) or svc.result_cache.stats()["hits"] < 1:
+                raise AssertionError(f"flightsql result cache: repeated q1 submitted {jobs} "
+                                     f"jobs, same rows {table.equals(first)}, "
+                                     f"{svc.result_cache.stats()}")
+        print(f"flightsql result cache: q1 {walls[0]:.3f} s submitting 1 job, repeated "
+              f"{walls[1]:.4f} s submitting none, the same rows [{tag}]", flush=True)
+    finally:
+        client.close()
+        svc.shutdown()
+    print(f"flightsql phase {time.time() - t_phase:.1f} s [{tag}]", flush=True)
     return out
 
 
@@ -2585,6 +2894,282 @@ def run_multihost_phase(device: str, tables: dict, sf: float, tag: str, refs: tu
     return out
 
 
+# ---- 12. avro ------------------------------------------------------------------------
+# the first AVRO_ROWS lineitem rows, q1's and q6's columns: both packages'
+# avro reader decodes value by value in Python, so SF1's 6 M rows would take
+# minutes (PERF.md names this cut)
+AVRO_ROWS = 1 << 18
+AVRO_COLUMNS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+                "l_linestatus", "l_shipdate"]
+
+
+def run_avro_phase(device: str, tables: dict, tag: str) -> dict:
+    """The avro phase: the first AVRO_ROWS lineitem rows (AVRO_COLUMNS)
+    written through the port's ``write_avro`` and registered with
+    ``register_avro`` in a standalone context on ``device``; q1 and q6 there,
+    rows exact against ``exact_q1_q6`` over the same rows and the host engine,
+    and equal to the same queries over the same rows from ``register_arrow``;
+    zero host fallbacks; q1 launches grouped_sums. Prints the write and
+    decode rates. Returns {("avro", query, "once"): the run's record}."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.utils.avro import write_avro
+
+    t_phase = time.time()
+    rows = pq.read_table(tables["lineitem"], columns=AVRO_COLUMNS).slice(0, AVRO_ROWS)
+    work = os.path.join(DATA_DIR, "avro")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "lineitem.avro")
+    t0 = time.time()
+    write_avro(path, rows)
+    wrote = time.time() - t0
+    ctx = BallistaContext.standalone(device=device)
+    if not str(ctx.device).startswith(device):
+        raise AssertionError(f"avro: the standalone context runs on {ctx.device}")
+    t0 = time.time()
+    ctx.register_avro("lineitem", path)
+    decoded = time.time() - t0
+    print(f"avro: {rows.num_rows} rows x {rows.num_columns} columns, {os.path.getsize(path)} "
+          f"bytes (deflate): written in {wrote:.3f} s, decoded in {decoded:.3f} s = "
+          f"{rows.num_rows / decoded:.0f} rows/s on the host [{tag}] host CPU: {cpu_model()}",
+          flush=True)
+    arrow = BallistaContext.standalone(device=device)
+    arrow.register_arrow("lineitem", rows)
+    host = BallistaContext.standalone(backend="numpy")
+    host.register_arrow("lineitem", rows)
+    li = {c: (rows.column(c).cast(pa.int32()) if c == "l_shipdate" else rows.column(c))
+          .to_numpy(zero_copy_only=False) for c in AVRO_COLUMNS}
+    exact = dict(zip(("q1", "q6"), exact_q1_q6(li)))
+    out = {}
+    for q in ("q1", "q6"):
+        with open(os.path.join(REPO, "benchmarks", "queries", f"{q}.sql")) as f:
+            sql = f.read()
+        r = run_counted(ctx, sql)
+        check_result(r["table"], host.sql(sql).collect(), exact[q], q, r["presums"])
+        if not r["table"].equals(arrow.sql(sql).collect()):
+            raise AssertionError(f"avro {q}: rows differ from the same rows through "
+                                 "register_arrow")
+        fallbacks = r["metrics"].get("op.HostFallback.count", 0.0)
+        if fallbacks:
+            raise AssertionError(f"avro {q}: {fallbacks:g} host fallbacks")
+        if q == "q1" and r["launches"] <= 0:
+            raise AssertionError("avro q1: grouped_sums never launched")
+        print(f"avro {q}: wall {r['wall']:.3f} s, grouped_sums launches {r['launches']}, "
+              f"device stages {r['metrics'].get('op.DeviceExecute.count', 0.0):g}, rows "
+              f"exact and equal to register_arrow's [{tag}]", flush=True)
+        out[("avro", q, "once")] = r
+    print(f"avro phase {time.time() - t_phase:.1f} s [{tag}]", flush=True)
+    return out
+
+
+# ---- 13. ha --------------------------------------------------------------------------
+HA_LEASE_S = 2.0
+# one task of q1's first stage slowed, so scheduler A is stopped while its
+# job is mid-flight
+HA_FAULT = "task.execute:slow@delay=2.0:stage_id=1:partition=0"
+
+
+def _status_calls(sched, into: list) -> None:
+    """Sum the grouped_sums calls of every task status ``sched`` receives
+    into ``into[0]`` (statuses a scheduler receives for a job it adopted
+    included)."""
+    real = sched._apply_statuses
+
+    def apply(executor_id, statuses):
+        into[0] += sum(st.get("metrics", {}).get("op.GroupedSums.calls", 0.0)
+                       for st in statuses)
+        return real(executor_id, statuses)
+
+    sched._apply_statuses = apply
+
+
+def _job_table(status):
+    """A finished job's result, read from its partition locations."""
+    import pyarrow as pa
+
+    from ballista_tpu_torch.plan.serde import schema_from_json
+    from ballista_tpu_torch.scheduler.flight_sql import _location_batches
+
+    schema = schema_from_json(json.loads(status.result_schema.decode())).to_arrow()
+    locs = [{"path": l.path, "host": l.host, "flight_port": l.flight_port,
+             "executor_id": l.executor_id, "stage_id": l.partition.stage_id,
+             "map_partition": l.map_partition} for l in status.partition_locations]
+    batches = list(_location_batches(locs, schema))
+    return pa.Table.from_batches(batches, schema=schema) if batches else schema.empty_table()
+
+
+def run_ha_phase(device: str, tables: dict, tag: str, refs: tuple) -> dict:
+    """The ha phase: schedulers A and B on the ``kv`` backend, sharing one
+    sqlite file, job leases of HA_LEASE_S; two torch executors on ``device``
+    in this process, 1 task slot each, naming both schedulers. q1 submitted
+    to A (one first-stage task slowed by HA_FAULT), A stopped once a task
+    has started: B adopts the job when A's lease lapses and finishes it.
+    Rows exact, zero host fallbacks, grouped_sums launches equal to the
+    calls the task statuses both schedulers received report. Then q3 through
+    a scheduler on the ``etcd`` backend, against an in-process ``KvServer``'s
+    etcd surface: rows exact, the job persisted there. Returns
+    {("ha", query, "once"): the run's record}."""
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.client.standalone import start_standalone_cluster
+    from ballista_tpu_torch.config import ExecutorConfig, SchedulerConfig
+    from ballista_tpu_torch.executor.process import ExecutorProcess
+    from ballista_tpu_torch.plan.serde import encode_logical
+    from ballista_tpu_torch.proto import ballista_pb2 as pb
+    from ballista_tpu_torch.proto.rpc import scheduler_stub
+    from ballista_tpu_torch.scheduler.kv_service import KvServer
+    from ballista_tpu_torch.scheduler.server import SchedulerServer
+    from ballista_tpu_torch.scheduler.state_store import InMemoryKV
+
+    t_phase = time.time()
+    exact, want = refs
+    on_card = device.startswith("cuda")
+    work = os.path.join(DATA_DIR, "ha")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def scheduler():
+        return SchedulerServer(SchedulerConfig(
+            scheduling_policy="pull", cluster_backend="kv",
+            kv_path=os.path.join(work, "state.db"), job_lease_ttl_seconds=HA_LEASE_S,
+            expire_dead_executors_interval_seconds=0.25, executor_timeout_seconds=30.0))
+
+    a, b = scheduler(), scheduler()
+    calls = [0.0]
+    _status_calls(a, calls)
+    _status_calls(b, calls)
+    port_a, port_b = a.start(0), b.start(0)
+    execs = []
+    out = {}
+    try:
+        for i in range(2):
+            e = ExecutorProcess(ExecutorConfig(
+                port=0, flight_port=0, scheduler_port=port_a,
+                scheduler_addrs=[f"127.0.0.1:{port_a}", f"127.0.0.1:{port_b}"],
+                backend="torch", device=device, task_slots=1,
+                work_dir=os.path.join(work, f"exec{i}"), poll_interval_ms=50),
+                executor_id=f"ha-{i}")
+            e.start()
+            execs.append(e)
+        deadline = time.time() + EXECUTOR_START_S
+        while len(a.cluster.alive_executors()) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        check_executors_report(a, 2, device, "ha")
+        planner = BallistaContext.standalone(backend="numpy")
+        for name, location in tables.items():
+            planner.register_parquet(name, location)
+        sql, expect = want["q1"]
+        stub = scheduler_stub(f"127.0.0.1:{port_a}")
+        session = stub.CreateSession(pb.CreateSessionParams(settings={}), timeout=30).session_id
+        with counting() as rec:
+            t0 = time.time()
+            job_id = stub.ExecuteQuery(pb.ExecuteQueryParams(
+                logical_plan=encode_logical(planner.sql(sql).logical_plan()),
+                session_id=session, settings={"ballista.faults.schedule": HA_FAULT},
+                table_defs=[json.dumps(m.to_dict()).encode()
+                            for m in planner.catalog.tables.values()]), timeout=60).job_id
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                with a.tasks._lock:
+                    g = a.tasks.get_job(job_id)
+                    started = g is not None and any(
+                        t is not None for s in g.stages.values() for t in s.task_infos)
+                if started:
+                    break
+                time.sleep(0.02)
+            else:
+                raise AssertionError("ha: q1 never started on scheduler A")
+            a_graph = a.tasks.get_job(job_id)
+            a.stop()
+            a = None
+            stopped = time.time()
+            stub_b = scheduler_stub(f"127.0.0.1:{port_b}")
+            adopted, status = None, None
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                if adopted is None and b.tasks.get_job(job_id) is not None:
+                    adopted = time.time()
+                status = stub_b.GetJobStatus(pb.GetJobStatusParams(job_id=job_id),
+                                             timeout=30).status
+                if status.state == "SUCCESSFUL":
+                    break
+                if status.state in ("FAILED", "CANCELLED"):
+                    raise AssertionError(f"ha: q1 {status.state} on B: {status.error}")
+                time.sleep(0.05)
+            ended = time.time()
+            if status is None or status.state != "SUCCESSFUL" or adopted is None:
+                raise AssertionError(f"ha: B did not finish A's job "
+                                     f"({status.state if status else None})")
+            table = _job_table(status)
+        check_result(table, expect, exact["q1"], "q1", rec["presums"])
+        # B's restored graph holds the metrics of the tasks that ran on B
+        jobs = [job_summary(g) for g in (a_graph, b.tasks.get_job(job_id))]
+        fallbacks = sum(j["metrics"].get("op.HostFallback.count", 0.0) for j in jobs)
+        if fallbacks or jobs[1]["metrics"].get("op.DeviceExecute.count", 0.0) <= 0:
+            raise AssertionError(f"ha q1: {fallbacks:g} host fallbacks, device stages on B "
+                                 f"{jobs[1]['metrics'].get('op.DeviceExecute.count', 0.0):g}")
+        if on_card and rec["launches"] != int(calls[0]):
+            raise AssertionError(f"ha q1: {rec['launches']} grouped_sums launches, the task "
+                                 f"statuses both schedulers received report {calls[0]:g} calls")
+        if calls[0] <= 0:
+            raise AssertionError("ha q1: grouped_sums never called")
+        print(f"ha q1: A stopped {stopped - t0:.3f} s after the submit; B adopted the job "
+              f"{adopted - stopped:.3f} s after A's stop (lease {HA_LEASE_S:g} s) and finished "
+              f"it {ended - stopped:.3f} s after; {jobs[1]['tasks']} tasks, grouped_sums "
+              f"launches {rec['launches']}, calls reported {calls[0]:g}, host fallbacks 0, "
+              f"rows exact [{tag}]", flush=True)
+        out[("ha", "q1", "once")] = {
+            "table": table, "wall": ended - t0, "launches": rec["launches"],
+            "shapes": rec["shapes"], "presums": rec["presums"], "metrics": jobs[1]["metrics"],
+            "job": jobs[1]}
+    finally:
+        for e in execs:
+            e.stop(grace=False)
+        b.stop()
+        if a is not None:
+            a.stop()
+
+    # q3 through a scheduler whose job state is etcd v3, served by the
+    # KvServer's gateway
+    kv = KvServer(InMemoryKV())
+    kv_port = kv.start(0, "127.0.0.1")
+    cluster = None
+    try:
+        cluster = start_standalone_cluster(
+            n_executors=2, task_slots=2, device=device, work_dir=os.path.join(work, "etcd"),
+            scheduler_config=SchedulerConfig(cluster_backend="etcd",
+                                             kv_addr=f"127.0.0.1:{kv_port}"))
+        check_executors_report(cluster.scheduler, 2, device, "ha etcd")
+        ctx = BallistaContext.remote("127.0.0.1", cluster.scheduler_port)
+        for name, location in tables.items():
+            ctx.register_parquet(name, location)
+        sql, expect = want["q3"]
+        with counting() as rec:
+            t0 = time.time()
+            table = ctx.sql(sql).collect()
+            wall = time.time() - t0
+        check_result(table, expect, exact["q3"], "q3", rec["presums"])
+        job = job_summary(cluster.scheduler.tasks.get_job(ctx.last_job_id))
+        check_job("ha q3 etcd", job)
+        persisted = cluster.scheduler.state_store.list_jobs()
+        if ctx.last_job_id not in persisted:
+            raise AssertionError(f"ha q3 etcd: job {ctx.last_job_id} not in etcd: {persisted}")
+        print(f"ha q3 over the etcd backend: wall {wall:.3f} s, {job['stages']} stages, job "
+              f"persisted through the etcd wire, rows exact [{tag}]", flush=True)
+        out[("ha", "q3", "once")] = {
+            "table": table, "wall": wall, "launches": rec["launches"],
+            "shapes": rec["shapes"], "presums": rec["presums"], "metrics": job["metrics"],
+            "job": job}
+    finally:
+        if cluster is not None:
+            cluster.stop()
+        kv.stop()
+    print(f"ha phase {time.time() - t_phase:.1f} s [{tag}]", flush=True)
+    return out
+
+
 def check_same_as_host(label: str, got, host) -> None:
     """Ints and strings equal to the host engine's, floats within 1e-6
     relative (it sums decimals in f64)."""
@@ -2768,8 +3353,9 @@ def report_runs(results: dict, prof: dict, card: str) -> None:
 
 
 def rehearse(data_dir: str, parts: int = 2) -> None:
-    """The hash, slice, windows, staged, distributed, surfaces, mesh and
-    multihost phases on the CPU over the TPC-H tables under
+    """The hash, slice, windows, staged, distributed (with flightsql),
+    surfaces, mesh, multihost, avro and ha phases on the CPU over the TPC-H
+    tables under
     ``data_dir`` (the tests' SF 0.01, ``parts`` files per large table:
     ``tests/.data/torch_tpch_sf001``):
 
@@ -2790,6 +3376,7 @@ def rehearse(data_dir: str, parts: int = 2) -> None:
     GS.grouped_sums_multi = counted
     try:
         check_hash_buckets("cpu", tables)
+        check_native_partition(tables, "cpu")
         refs = references(tables)
         results, _ = run_slice("cpu", tables, 0.01, parts, "cpu", refs=refs)
         results.update(run_windows("cpu", tables, "cpu")[0])
@@ -2798,6 +3385,8 @@ def rehearse(data_dir: str, parts: int = 2) -> None:
         results.update(run_surfaces_phase("cpu", tables, "cpu", refs))
         results.update(run_mesh_phase("cpu", tables, 0.01, "cpu", refs, results, 1 << 16))
         results.update(run_multihost_phase("cpu", tables, 0.01, "cpu", refs, results))
+        results.update(run_avro_phase("cpu", tables, "cpu"))
+        results.update(run_ha_phase("cpu", tables, "cpu", refs))
     finally:
         GS.grouped_sums_multi = real
     report_runs(results, {}, "cpu")
@@ -2817,6 +3406,7 @@ def main() -> int:
     print(f"device: {kind}, {torch.cuda.device_count()} visible; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; nvidia-smi: {card}", flush=True)
 
+    from ballista_tpu_torch import native
     from ballista_tpu_torch.ops import cuda_build
 
     phase("build")
@@ -2827,6 +3417,10 @@ def main() -> int:
         for line in cuda_build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {line.strip()}")
+    t1 = time.time()
+    native.build()
+    print(f"built native/partition.cpp with g++ in {time.time() - t1:.1f} s (host code)",
+          flush=True)
     print(f"build total {time.time() - t0:.1f} s", flush=True)
 
     phase("kernels")
@@ -2838,6 +3432,7 @@ def main() -> int:
     phase("hash")
     tables = tpch_tables(DATA_DIR, SF, PARTS)
     check_hash_buckets("cuda", tables)
+    check_native_partition(tables, card)
 
     phase("slice")
     t0 = time.time()
@@ -2872,6 +3467,12 @@ def main() -> int:
 
     phase("multihost")
     results.update(run_multihost_phase("cuda", tables, SF, card, refs, results))
+
+    phase("avro")
+    results.update(run_avro_phase("cuda", tables, card))
+
+    phase("ha")
+    results.update(run_ha_phase("cuda", tables, card, refs))
     report_runs(results, prof, card)
     if ESTIMATE_MISSES:
         for miss in ESTIMATE_MISSES:

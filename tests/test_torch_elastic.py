@@ -192,8 +192,11 @@ def test_cli_without_cuda_exits_naming_the_reason():
     assert "CUDA is not available" in out.stderr and "device" in out.stderr
 
 
-def test_pyballista_defaults_to_cuda(torch_tpch_dir):
+def test_pyballista_defaults_to_cuda(torch_tpch_dir, tmp_path):
+    import pyarrow.parquet as pq
+
     from ballista_tpu_torch.pyballista import SessionContext
+    from ballista_tpu_torch.utils.avro import write_avro
 
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the shim runs on it")
@@ -202,5 +205,8 @@ def test_pyballista_defaults_to_cuda(torch_tpch_dir):
     ctx = SessionContext(backend="torch", device="cpu")
     ctx.register_parquet("nation", os.path.join(torch_tpch_dir, "nation"))
     assert ctx.sql("select count(*) as n from nation").collect().to_pydict() == {"n": [25]}
-    with pytest.raises(BallistaError, match="avro"):
-        ctx.read_avro("/nope")
+    # an avro source through the shim: nation's rows, read back whole
+    nation = pq.read_table(os.path.join(torch_tpch_dir, "nation"))
+    write_avro(str(tmp_path / "nation.avro"), nation)
+    got = ctx.read_avro(str(tmp_path / "nation.avro")).collect()
+    assert got.to_pydict() == nation.to_pydict()

@@ -80,6 +80,12 @@ def test_no_jax_or_reference_imports_and_all_port_imports_resolve():
             "engine/megastage.py"} <= files
     # and the mesh groups'
     assert "parallel/multihost.py" in files
+    # and Flight SQL, avro, the durable HA state, the KEDA scaler and the
+    # host shuffle partitioner
+    assert {"scheduler/flight_sql.py", "scheduler/state_store.py", "scheduler/kv_service.py",
+            "scheduler/etcd_gateway.py", "scheduler/external_scaler.py", "utils/avro.py",
+            "native/__init__.py", "proto/flight_sql_pb2.py", "proto/kv_pb2.py",
+            "proto/etcd_pb2.py", "proto/keda_pb2.py"} <= files
     bad = []
     for path in _port_sources():
         rel = os.path.relpath(path, REPO)
@@ -200,8 +206,51 @@ try:
     assert ran > 0 and all(s.stage_metrics.get("op.HostFallback.count", 0.0) == 0.0
                            for s in graph.stages.values())
     print("REMOTE", len(graph.stages))
+
+    # q1 as a Flight SQL statement, fetched from the executors' endpoints
+    import json
+    import pyarrow.flight as flight
+    from ballista_tpu_torch.proto import flight_sql_pb2 as fsql
+    from ballista_tpu_torch.scheduler.flight_sql import SchedulerFlightService, pack_any
+    svc = SchedulerFlightService(cluster.scheduler, "127.0.0.1", 0)
+    svc.serve_background()
+    client = flight.connect("grpc://127.0.0.1:%d" % svc.port)
+    try:
+        for t in TPCH_TABLES:
+            list(client.do_action(flight.Action("register_parquet", json.dumps(
+                {{"name": t, "path": os.path.join({data!r}, t)}}).encode())))
+        info = client.get_flight_info(flight.FlightDescriptor.for_command(
+            pack_any(fsql.CommandStatementQuery(query=q1))))
+        parts = []
+        for ep in info.endpoints:
+            direct = flight.connect(ep.locations[0].uri.decode())
+            parts.append(direct.do_get(ep.ticket).read_all())
+            direct.close()
+        assert pa.concat_tables(parts).equals(out)
+    finally:
+        client.close()
+        svc.shutdown()
+    print("FLIGHTSQL", len(info.endpoints))
 finally:
     cluster.stop()
+
+# q1 over an avro source, equal to q1 over the same rows from Arrow
+import pyarrow.parquet as pq
+from ballista_tpu_torch.utils.avro import write_avro
+rows = pq.read_table(os.path.join({data!r}, "lineitem"), columns=[
+    "l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+    "l_linestatus", "l_shipdate"]).slice(0, 4096)
+avro_path = os.path.join(tempfile.mkdtemp(), "lineitem.avro")
+write_avro(avro_path, rows)
+actx, arrow_ctx = BallistaContext.standalone(device="cpu"), BallistaContext.standalone(device="cpu")
+actx.register_avro("lineitem", avro_path)
+arrow_ctx.register_arrow("lineitem", rows)
+got = actx.sql(q1).collect()
+assert got.num_rows == 4 and got.equals(arrow_ctx.sql(q1).collect())
+assert actx.last_engine_metrics.get("op.HostFallback.count", 0.0) == 0.0
+import ballista_tpu_torch.scheduler.kv_service, ballista_tpu_torch.scheduler.etcd_gateway
+import ballista_tpu_torch.scheduler.external_scaler, ballista_tpu_torch.native
+print("AVRO", got.num_rows)
 
 # EXPLAIN VERIFY and ANALYZE, and the inspection and operation surfaces
 verified = ctx.sql("EXPLAIN VERIFY " + q1).collect().to_pydict()
@@ -262,10 +311,12 @@ assert not any(k == "jax" or k.startswith(("jax.", "ballista_tpu."))
 def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     """q1, a device window, a paged q3 join, q1 and a streamed final
     aggregate stage by stage through shuffle files, q1 through the port's
-    scheduler and two executors by the remote client, EXPLAIN VERIFY and
-    ANALYZE of q1, the REST API, scale controller, CLI and shim modules,
-    q1 fused over a mesh of two shards, and a fused aggregate across a mesh
-    group of two processes, with JAX and the JAX package unimportable."""
+    scheduler and two executors by the remote client and as a Flight SQL
+    statement, q1 over an avro source, EXPLAIN VERIFY and ANALYZE of q1,
+    the REST API, scale controller, CLI, shim, kv, etcd, KEDA and native
+    modules, q1 fused over a mesh of two shards, and a fused aggregate across
+    a mesh group of two processes, with JAX and the JAX package
+    unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", _Q1_BLOCKED.format(repo=REPO, data=torch_tpch_dir)],
@@ -274,7 +325,7 @@ def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ROWS 4" in proc.stdout and "PAGED" in proc.stdout and "STAGED" in proc.stdout
     assert "REMOTE" in proc.stdout and "EXPLAIN" in proc.stdout and "MESH 2" in proc.stdout
-    assert "GROUP 2" in proc.stdout
+    assert "GROUP 2" in proc.stdout and "FLIGHTSQL" in proc.stdout and "AVRO 4" in proc.stdout
 
 
 def test_standalone_defaults_to_cuda_and_raises_without_it():

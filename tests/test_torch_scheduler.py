@@ -76,20 +76,54 @@ def test_stage_plans_serialize_to_the_jax_schedulers_bytes(torch_tpch_dir, qname
 
 
 # ---- the JAX package's scheduler unit tests, on the port ---------------------------
-def _port_copy(filename: str) -> types.ModuleType:
+def _port_copy(filename: str, rewrites: dict | None = None) -> types.ModuleType:
     """``tests/<filename>`` with every ``ballista_tpu`` import rewritten to
-    the port's. A JAX test module it imports (``from test_x import ...``)
-    is read from that module's port copy, registered as ``port_test_x``."""
+    the port's. A JAX test module it imports (``from test_x import ...`` or
+    ``from tests.test_x import ...``) is read from that module's port copy,
+    registered as ``port_test_x``. ``rewrites`` (regex -> replacement) are
+    applied to the source last: a fixture renamed, a data path, the
+    executors' backend."""
     path = os.path.join(TESTS, filename)
     src = re.sub(r"\bballista_tpu\b(?!_)", "ballista_tpu_torch", open(path).read())
+    src = re.sub(r"\bfrom tests\.(test_\w+) import\b", r"from \1 import", src)
     for dep in set(re.findall(r"\bfrom (test_\w+) import\b", src)):
         if f"port_{dep}" not in sys.modules:
             sys.modules[f"port_{dep}"] = _port_copy(f"{dep}.py")
     src = re.sub(r"\bfrom (test_\w+) import\b", r"from port_\1 import", src)
+    for pattern, repl in (rewrites or {}).items():
+        src, n = re.subn(pattern, repl, src)
+        assert n, f"{filename}: {pattern!r} matches nothing"
     mod = types.ModuleType(f"port_{filename[:-3]}")
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)
     return mod
+
+
+def _is_fixture(obj) -> bool:
+    return (type(obj).__name__ == "FixtureFunctionDefinition"
+            or hasattr(obj, "_pytestfixturefunction"))
+
+
+def mirror(namespace: dict, filename: str, left_out: dict, rewrites: dict | None = None,
+           only: tuple | None = None) -> list:
+    """Put the test cases of ``filename``'s port copy (``only`` those named,
+    else all but the ``(filename, case)`` keys of ``left_out``) and every
+    fixture it defines into ``namespace``, a test module's globals, so
+    pytest collects each case there under its own name, with its own
+    parameters and marks. A fixture ``namespace`` already defines wins: the
+    port's own clusters, data and executors replace the JAX test's. Returns
+    the names of the cases mirrored."""
+    mod = _port_copy(filename, rewrites)
+    cases = [c for _, c in _cases(filename) if (filename, c) not in left_out
+             and (only is None or c in only)]
+    assert only is None or sorted(cases) == sorted(only), (filename, only)
+    for name, obj in vars(mod).items():
+        if name in cases:
+            assert name not in namespace, f"{filename}::{name} is already a case here"
+            namespace[name] = obj
+        elif _is_fixture(obj) and name not in namespace:
+            namespace[name] = obj
+    return cases
 
 
 def _cases(filename: str, unit_only: bool = False) -> list:
