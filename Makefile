@@ -12,10 +12,13 @@ PY ?= python
 	concurrency-check concurrency-test megastage-test megastage-bench \
 	megastage-bench-smoke
 
-# Prong B gate: codebase linter against the checked-in baseline + proto drift
+# Prong B gate: codebase linter against the checked-in baseline + proto drift,
+# for the JAX package and for the PyTorch port (each with its own baseline)
 lint:
 	$(PY) -m ballista_tpu.analysis.lint ballista_tpu/
 	$(PY) -m ballista_tpu.analysis.proto_drift
+	$(PY) -m ballista_tpu_torch.analysis.lint ballista_tpu_torch/
+	$(PY) -m ballista_tpu_torch.analysis.proto_drift
 
 proto-drift:
 	$(PY) -m ballista_tpu.analysis.proto_drift

@@ -8,8 +8,11 @@ logical plans before any executor sees them — Armbrust et al., SIGMOD '15.)
   (error findings block the job), and EXPLAIN VERIFY's rows.
 * ``concurrency`` — the runtime concurrency verifier (traced locks and
   guarded containers, off by default).
-
-The JAX package's codebase linter and proto drift check are not ported.
+* ``lint`` — the codebase linter, the JAX package's rules whole, against the
+  port's own baseline (``lint_baseline.json``, empty):
+  ``python -m ballista_tpu_torch.analysis.lint ballista_tpu_torch/``.
+* ``proto_drift`` — each ``proto/*.proto`` against its checked-in ``_pb2``
+  module: ``python -m ballista_tpu_torch.analysis.proto_drift``.
 """
 from ballista_tpu_torch.analysis.plan_verifier import (
     ERROR,

@@ -329,7 +329,12 @@ _ENTRIES: dict[str, _Entry] = {
             "serialized downstream-stage plans so executors compile stage N+1 "
             "while stage N runs; tasks adopt the precompiled (shape-"
             "generalized) program on a stage-cache miss instead of paying "
-            "inline XLA compile",
+            "inline XLA compile. The torch engine compiles nothing: its "
+            "executors warm stage N+1 instead (one run of its device program "
+            "on synthetic bucket-shaped inputs, result dropped: CUDA's lazy "
+            "module loads, the grouped_sums library and the allocator's "
+            "growth are paid behind stage N), and a real stage whose shape "
+            "key was warmed reports the warm's wall in op.CompileHidden",
             _bool,
             True,
         ),

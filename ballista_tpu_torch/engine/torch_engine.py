@@ -60,9 +60,20 @@ ends its device work, so it holds device time, not enqueue time. There is no
 ``DeviceCompile`` span: eager torch compiles nothing.
 
 PyTorch runs eagerly, so a stage program is traced anew on every call: there
-is no compile cache, precompile or hint pipeline. Nodes outside
-``_supported`` run on the host kernels, as the JAX engine's unsupported
-nodes do, and each such run adds to ``op.HostFallback.count``.
+is no compile cache. What a first run costs instead is first launches (CUDA's
+lazy load of each kernel module, the grouped_sums library and workspace, the
+allocator's first growth), and the scheduler's precompile hints hide them:
+the compile service (``engine/compile_service.py``) runs each hinted
+downstream stage once on synthetic bucket-shaped inputs while the stage
+before it runs (``precompile_stage_template``, the JAX engine's decisions
+spec for spec), and a real stage whose shape key was warmed adds the warm's
+wall to ``op.CompileHidden.time_s`` once (``compile_hidden_ms`` on its
+``CompiledStage`` span). The JAX engine's shape-generalized background
+programs of the fused exchange and the megastage have no counterpart: those
+run as eager calls on the mesh shards' threads and are never warmed.
+
+Nodes outside ``_supported`` run on the host kernels, as the JAX engine's
+unsupported nodes do, and each such run adds to ``op.HostFallback.count``.
 
 A stage over a shuffle read streams (``execute_partition_stream``): chunks
 coalesced to ``ballista.tpu.stream_device_rows`` run one device stage each,
@@ -83,12 +94,13 @@ import torch
 
 from ballista_tpu_torch.config import (
     BALLISTA_ENGINE_PAGED_JOIN, BALLISTA_ENGINE_PAGED_JOIN_THRESHOLD,
-    BALLISTA_ENGINE_PREFETCH_DEPTH, BALLISTA_SHUFFLE_COMPRESSION,
+    BALLISTA_ENGINE_PRECOMPILE, BALLISTA_ENGINE_PREFETCH_DEPTH, BALLISTA_SHUFFLE_COMPRESSION,
     BALLISTA_TPU_FUSE_INPUT_MAX_ROWS, BALLISTA_TPU_ICI_SHUFFLE,
     BALLISTA_TPU_MESH_GROUP_PROCESS_ID, BALLISTA_TPU_MESH_GROUP_SIZE, BALLISTA_TPU_MESH_GROUP_TAG,
     BALLISTA_TPU_MESH_GROUP_TIMEOUT_MS, BALLISTA_TPU_MIN_DEVICE_ROWS,
     BALLISTA_TPU_NATIVE_DTYPES, BALLISTA_TPU_STREAM_DEVICE_ROWS, BallistaConfig,
 )
+from ballista_tpu_torch.engine import compile_service as CS
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine.numpy_engine import NumpyEngine
 from ballista_tpu_torch.errors import ExecutionError, IciDemoted
@@ -275,6 +287,7 @@ class TorchEngine(NumpyEngine):
 
     def _timed_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
         t0 = time.time()
+        hidden_before = self.op_metrics.get("op.CompileHidden.time_s", 0.0)
         out = self._run_stage(plan, part)
         # the stage ends in its fetch to the host, which waits for the device
         elapsed = time.time() - t0
@@ -294,6 +307,9 @@ class TorchEngine(NumpyEngine):
             attrs["dict_shared_cols"] = self._last_dict_shared
         if self._last_dict_per_batch:
             attrs["dict_per_batch_cols"] = self._last_dict_per_batch
+        hidden_s = self.op_metrics.get("op.CompileHidden.time_s", 0.0) - hidden_before
+        if hidden_s:
+            attrs["compile_hidden_ms"] = round(hidden_s * 1000, 3)
         self._record_span("CompiledStage", t0, elapsed, attrs)
         return out
 
@@ -869,20 +885,24 @@ class TorchEngine(NumpyEngine):
                 raise _PagedJoinFallback(
                     max(candidates, key=lambda n: MM.estimate_eager_program_bytes(n, leaves)))
 
+        if self._precompile_enabled():
+            self._adopt_warm(plan, leaves)
         tensors = self._device_args(leaves)
         stage_fn, holder = _make_stage_fn(plan, _stage_layout(leaves))
 
-        base = self._stage_peak_start()
-        t0 = time.time()
-        out = stage_fn(*tensors)
-        self._sync()
-        dt = time.time() - t0
-        if base is not None:
-            # arguments (each tensor once) plus what the program allocated
-            resident = sum(t.numel() * t.element_size()
-                           for t in {t.data_ptr(): t for t in tensors}.values())
-            self._last_hbm_peak = MM.measured_program_bytes(self.device, base, resident)
-            self._metric_max("op.HbmPeak.max_bytes", self._last_hbm_peak)
+        # no warm run falls inside the measured window (compile_service.WINDOW)
+        with CS.WINDOW.stage():
+            base = self._stage_peak_start()
+            t0 = time.time()
+            out = stage_fn(*tensors)
+            self._sync()
+            dt = time.time() - t0
+            if base is not None:
+                # arguments (each tensor once) plus what the program allocated
+                resident = sum(t.numel() * t.element_size()
+                               for t in {t.data_ptr(): t for t in tensors}.values())
+                self._last_hbm_peak = MM.measured_program_bytes(self.device, base, resident)
+                self._metric_max("op.HbmPeak.max_bytes", self._last_hbm_peak)
         in_rows = float(sum(enc.n_rows for _, enc, _, _, _ in leaves.values()))
         self._metric("op.DeviceExecute.time_s", dt)
         self._metric("op.DeviceExecute.count", 1.0)
@@ -891,6 +911,27 @@ class TorchEngine(NumpyEngine):
 
         out_db = KT.device_batch_from_outputs(holder["meta"], list(out), 0)
         return self._fetch(out_db)
+
+    def _precompile_enabled(self) -> bool:
+        return bool(self.config.get(BALLISTA_ENGINE_PRECOMPILE))
+
+    def _warm_key(self, plan: P.PhysicalPlan, leaves: dict) -> tuple:
+        """The shape key a warm run records and a real stage looks up: the
+        program's fingerprint, its leaves' layout without their data stats,
+        the dtype policy and the device."""
+        return ("gen", plan.fingerprint(), _shape_key(leaves), KT.NATIVE_DTYPES,
+                str(self.device))
+
+    def _adopt_warm(self, plan: P.PhysicalPlan, leaves: dict) -> None:
+        """A real stage's lookup of its warmed key (``compile_cache.hits`` or
+        ``misses``); a warm found and not yet credited adds its wall to
+        ``op.CompileHidden.time_s``."""
+        svc = CS.get_service()
+        entry = svc.cache.lookup(lambda: self._warm_key(plan, leaves))
+        if entry is not None:
+            hidden_ms = svc.note_hidden(entry)
+            if hidden_ms:
+                self._metric("op.CompileHidden.time_s", hidden_ms / 1000.0)
 
     def _stage_peak_start(self) -> Optional[int]:
         """On the card: the allocator's peak reset (after folding it into
@@ -1304,6 +1345,169 @@ class TorchEngine(NumpyEngine):
                     yield self._exec_spliced(plan, below, bstate, part)
         finally:
             spill.close()
+
+    # ---- warm runs for precompile hints (compile_service) ---------------------------
+    def precompile_stage_template(
+        self, writer_plan, chunk_buckets: list[int], state_buckets: list[int],
+        submit=None,
+    ) -> tuple[int, Optional[str]]:
+        """Warm the stage programs a downstream stage TEMPLATE (shuffle
+        leaves still unresolved) will run, from synthetic bucket-shaped
+        inputs, recording them under their shape keys: called by the compile
+        service while the upstream stage is still executing.
+
+        Mirrors the streaming task path's program construction exactly
+        (``_stream_device_final_agg`` / ``_stream_device_chunks``), as the
+        JAX engine's method of the same name does, spec for spec: streamed
+        chunks are spliced into the plan as MemoryScan leaves, so the spliced
+        fingerprints here match what ``_run_stage`` computes at run time.
+        Returns ``(programs warmed or submitted, skip_reason)``; stages whose
+        programs bake data content into the run (per-batch string
+        dictionaries, join build sides, non-streamable shapes) are skipped,
+        never guessed."""
+        inner = writer_plan.input if isinstance(writer_plan, P.ShuffleWriterExec) else writer_plan
+        shuffle_leaves = (P.UnresolvedShuffleExec, P.ShuffleReaderExec)
+        specs: list[tuple[P.PhysicalPlan, P.PhysicalPlan, object, int]] = []
+
+        def no_joins(top, stop) -> bool:
+            # a probe-join chain needs its collected build side, and the
+            # build input does not exist before the upstream stage runs
+            node = top
+            while node is not stop:
+                if isinstance(node, (P.HashJoinExec, P.CrossJoinExec)):
+                    return False
+                node = node.input
+            return True
+
+        def mirror(top) -> Optional[str]:
+            """Mirror ``_stream_maker``'s program construction for one
+            streamed subtree: chunk-wise chains splice their source with a
+            chunk scan; a final aggregate below them contributes its merge
+            and finalize programs and feeds the chain its OUTPUT chunks."""
+            src = (self._chunk_source(top)
+                   if self._chunkwise_device(top) and self._chunk_source(top) is not top
+                   else top)
+            if not no_joins(top, src):
+                return "join build side unavailable before the stage runs"
+            if isinstance(src, shuffle_leaves):
+                if top is src:
+                    return "stage shape is not streamable"
+                for b in chunk_buckets:
+                    specs.append((top, src, src.schema(), b))
+                return None
+            if isinstance(src, P.HashAggregateExec) and src.mode == "final" and _supported(src):
+                below = src.input
+                agg_src = self._chunk_source(below) if self._chunkwise_device(below) else below
+                if not isinstance(agg_src, shuffle_leaves):
+                    return "source is not a shuffle read"
+                if not no_joins(below, agg_src):
+                    return "join build side unavailable before the stage runs"
+                merge_node = P.HashAggregateExec(
+                    input=below, mode="merge", group_exprs=src.group_exprs,
+                    agg_exprs=src.agg_exprs, input_schema_for_aggs=src.input_schema_for_aggs,
+                )
+                self._tiny_keepalive.append(merge_node)
+                for b in chunk_buckets:
+                    specs.append((merge_node, agg_src, agg_src.schema(), b))
+                for b in state_buckets:
+                    specs.append((src, below, below.schema(), b))
+                if top is not src:
+                    # the chain above consumes the aggregate's finalized
+                    # chunks: group-count-sized, so the state buckets apply
+                    for b in state_buckets:
+                        specs.append((top, src, src.schema(), b))
+                return None
+            return "stage shape is not streamable"
+
+        # host fold-op roots (top-k sort, local limit, coalesce) just consume
+        # their input's chunk stream (``_stream_maker``): the device programs
+        # the stage needs belong to the subtree below them
+        while True:
+            if isinstance(inner, P.SortExec) and inner.fetch is not None:
+                inner = inner.input
+            elif isinstance(inner, P.LimitExec) and not inner.global_ and inner.n >= 0:
+                inner = inner.input
+            elif isinstance(inner, P.CoalescePartitionsExec):
+                inner = inner.input
+            else:
+                break
+
+        reason = mirror(inner)
+        if reason is not None:
+            return 0, reason
+        # smallest buckets first: what tiny stages and short partitions hit,
+        # and the cheapest warms
+        specs.sort(key=lambda s: s[3])
+        if submit is not None:
+            for top, source, schema, bucket in specs:
+                submit(self._precompile_one, top, source, schema, bucket)
+            return len(specs), None
+        return sum(self._precompile_one(*spec) for spec in specs), None
+
+    def _precompile_one(self, top, source, schema, bucket: int) -> bool:
+        # shared-dictionary string columns are hintable: the shuffle leaf's
+        # dict_refs name registered dictionaries (per-batch-dictionary
+        # strings stay Unhintable)
+        import ballista_tpu_torch.ops.grouped_sums as GS
+
+        with GS.warming():
+            batch = CS.synthetic_batch(schema, bucket, getattr(source, "dict_refs", None))
+            spliced = self._splice(top, source, self._scan_at(batch, 0))
+            return self._precompile_spliced(spliced)
+
+    def _precompile_spliced(self, plan: P.PhysicalPlan, part: int = 0) -> bool:
+        """One warm run of a (synthetic) spliced stage program: its device
+        program runs once on the engine's device, synchronised, alone in the
+        device window, and the result is dropped; its shape key is recorded
+        with the run's wall (False: the key was warmed already). The
+        synthetic scan is ephemeral, so nothing enters the leaf caches.
+        Declined (``Unhintable``) when the estimate does not fit what the
+        device budget leaves free, or when the device path declines the
+        program."""
+        if not _supported(plan):
+            raise CS.Unhintable("stage subtree is not device-supported")
+        leaves = self._collect_leaves(plan, part)
+        svc = CS.get_service()
+
+        def warm():
+            budget = self._hbm_budget()
+            if budget > 0:
+                est = MM.estimate_eager_program_bytes(plan, leaves)
+                used = torch.cuda.memory_allocated(self.device) if self.device.type == "cuda" else 0
+                if used + est > budget:
+                    raise CS.Unhintable(f"over budget: {est} bytes estimated, {used} of "
+                                        f"{budget} in use")
+            tensors = self._device_args(leaves)
+            stage_fn, _holder = _make_stage_fn(plan, _stage_layout(leaves))
+            on_card = self.device.type == "cuda"
+            with CS.WINDOW.warm():
+                reserved = torch.cuda.memory_reserved(self.device) if on_card else 0
+                t0 = time.time()
+                try:
+                    stage_fn(*tensors)
+                    self._sync()
+                except (_HostFallback, KT.DeviceUnsupported) as e:
+                    raise CS.Unhintable(f"the device path declines the program: {e}") from e
+                dt = time.time() - t0
+            svc.note_warm(dt, reserved, torch.cuda.memory_reserved(self.device) if on_card else 0)
+            return CS.StageEntry(dt * 1000.0, "hint")
+
+        return svc.cache.record(self._warm_key(plan, leaves), warm) is not None
+
+
+def _shape_key(leaves: dict) -> tuple:
+    """The stage's leaves by layout (``compile_service.shape_signature``),
+    with each build leaf's key count and duplicate bucket. A numeric
+    column's decimal scale is kept only as scaled or not: the scale is
+    sniffed from the values, which a synthetic batch cannot know, and in an
+    eager program it changes constants, not the kernels launched."""
+    def layout(enc) -> tuple:
+        return tuple(c[:3] + (c[3] is not None,) + c[4:]
+                     if isinstance(c, tuple) and len(c) == 5 and c[2] is None else c
+                     for c in CS.shape_signature(enc))
+
+    return tuple((kind, layout(enc), None if extra is None else (tuple(extra[0].shape), extra[1]))
+                 for kind, enc, extra, _key, _node in leaves.values())
 
 
 def _leaf_cache_key(node: P.PhysicalPlan, part: int) -> Optional[tuple]:

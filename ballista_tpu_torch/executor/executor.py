@@ -8,8 +8,14 @@ output, report status; cancellable; metrics recorded per stage.
 Stages run on the engine the task's props name (``ballista.executor.backend``,
 else the executor's own): ``torch`` on the executor's device, or the host
 engine ``numpy``. Launch props may carry the scheduler's precompile hints
-(``ballista.precompile.hints``); eager torch compiles nothing ahead of
-a stage, so this executor ignores them. A torch task reports the
+(``ballista.precompile.hints``): a torch task hands them to the process's
+compile service (``engine/compile_service.py``), which warms the hinted
+downstream stages on the executor's device while this one runs, and once the
+task has written its output it hints its direct consumers again with the
+rows it measured. Hints are advisory: a bad one is counted and never fails a
+task. A torch task reports the warmed-key record's activity while it ran
+(``compile_cache.{opened,hits,misses,evictions}``, process-wide, so
+concurrent tasks share it) and the
 grouped_sums calls it made (``op.GroupedSums.calls``) and the kernel
 launches they took on the card (``op.GroupedSums.launches``, 0 on the CPU),
 its mesh programs' shard threads included, and those calls by shape
@@ -140,6 +146,7 @@ class Executor:
             backend = (
                 props.get("ballista.executor.backend", self.backend) if props else self.backend
             )
+            cache_stats0 = self._submit_precompile_hints(props, backend, config)
             engine, stage_lock, plan = self._engine_for(plan, task, backend, config)
             gs0 = _grouped_sums_record() if backend == "torch" else None
             if rt.cancelled.is_set():
@@ -205,6 +212,7 @@ class Executor:
                 )
             if rt.cancelled.is_set():
                 raise Cancelled(task.task_id)
+            self._refine_precompile_hints(props, backend, config, plan, stats)
             status.successful.CopyFrom(
                 pb.SuccessfulTask(
                     executor_id=self.executor_id,
@@ -231,6 +239,16 @@ class Executor:
                 for (n, k, ncols, dtype), calls in gs["shapes"].items():
                     name = str(dtype).replace("torch.", "")
                     status.metrics[f"op.GroupedSums.shape.{n}x{k}x{ncols}.{name}"] = float(calls)
+            if cache_stats0 is not None:
+                # warmed-key activity while this task ran (best-effort: the
+                # record is process-wide, concurrent tasks interleave)
+                from ballista_tpu_torch.engine.compile_service import get_service
+
+                now_stats = get_service().cache.stats()
+                for k in ("opened", "hits", "misses", "evictions"):
+                    d = now_stats.get(k, 0) - cache_stats0.get(k, 0)
+                    if d:
+                        status.metrics[f"compile_cache.{k}"] = float(d)
             self.metrics_collector.record_stage(
                 task.partition.job_id, task.partition.stage_id,
                 task.partition.partition_id, dict(status.metrics),
@@ -271,6 +289,92 @@ class Executor:
 
                 status.span_data = _json.dumps(collector.drain()).encode()
         return status
+
+    def _submit_precompile_hints(self, props, backend: str, config):
+        """Hand scheduler precompile hints to the process-wide compile service
+        (background warm runs of downstream stages on this executor's device
+        while this task runs). Returns the warmed-key record's stats for the
+        task's deltas, or None on the host backend. A bad hint can never
+        fail the task."""
+        if backend != "torch":
+            return None
+        try:
+            from ballista_tpu_torch.config import (
+                BALLISTA_ENGINE_PRECOMPILE,
+                BALLISTA_PRECOMPILE_HINTS,
+            )
+            from ballista_tpu_torch.engine.compile_service import get_service
+
+            svc = get_service()
+            hints = (props or {}).get(BALLISTA_PRECOMPILE_HINTS) or ""
+            if hints and bool(config.get(BALLISTA_ENGINE_PRECOMPILE)):
+                svc.submit_hints(hints, dict(props or {}), device=self.device)
+            return svc.cache.stats()
+        except Exception:  # noqa: BLE001 - hints are advisory
+            log.warning("precompile hint submission failed", exc_info=True)
+            return None
+
+    def _refine_precompile_hints(self, props, backend: str, config, plan, stats):
+        """Completion kick: a finished map task knows its REAL output rows, so
+        it re-submits the DIRECT downstream hints the scheduler could only
+        guess at (rows=0, or a leaf-scan estimate) with a measured
+        per-reduce-partition estimate. The refined warm overlaps the
+        remaining sibling maps and the status/launch/fetch round trip; the
+        digest dedupe makes repeats from sibling tasks free. Best-effort,
+        never fails the task."""
+        if backend != "torch":
+            return
+        try:
+            import json as _json
+
+            from ballista_tpu_torch.config import (
+                BALLISTA_AQE_ENABLED,
+                BALLISTA_AQE_TARGET_PARTITION_BYTES,
+                BALLISTA_ENGINE_PRECOMPILE,
+                BALLISTA_PRECOMPILE_HINTS,
+            )
+            from ballista_tpu_torch.ops.kernels_torch import bucket_size
+
+            hints_raw = (props or {}).get(BALLISTA_PRECOMPILE_HINTS) or ""
+            if not hints_raw or not bool(config.get(BALLISTA_ENGINE_PRECOMPILE)):
+                return
+            hints = _json.loads(hints_raw)
+            if not isinstance(hints, list):
+                return
+            zero = [h for h in hints
+                    if isinstance(h, dict) and h.get("direct")
+                    and (not h.get("rows") or h.get("est"))]
+            if not zero:
+                return
+            out_rows = sum(s.num_rows for s in stats)
+            n_out = max(1, len(stats))
+            n_maps = max(1, plan.input_partitions())
+            # uniform-maps estimate, bucketed so sibling tasks with slightly
+            # different outputs refine to ONE digest
+            per_reduce = (out_rows // n_out) * n_maps
+            if per_reduce <= 0:
+                return
+            # AQE coalescing (docs/adaptive.md): the consumer resolves with
+            # adjacent tiny partitions merged up to the byte target, so hint
+            # the post-coalesce task shape. An approximation from THIS
+            # producer's bytes alone: a join consumer's merge also counts the
+            # other side, so its hint may overshoot — a missed warm, never a
+            # wrong result
+            if bool(config.get(BALLISTA_AQE_ENABLED)):
+                target = int(config.get(BALLISTA_AQE_TARGET_PARTITION_BYTES) or 0)
+                per_bytes = (sum(s.num_bytes for s in stats) // n_out) * n_maps
+                if target > 0 and 0 < per_bytes <= target:
+                    per_reduce *= min(n_out, max(1, target // per_bytes))
+            # measured now: drop the "est" tag so repeats of the refined
+            # payload are byte-identical whichever sibling sent them
+            refined = [{k: v for k, v in h.items() if k != "est"}
+                       | {"rows": bucket_size(per_reduce)} for h in zero]
+            from ballista_tpu_torch.engine.compile_service import get_service
+
+            get_service().submit_hints(_json.dumps(refined), dict(props or {}),
+                                       device=self.device)
+        except Exception:  # noqa: BLE001 - refinement is advisory
+            log.debug("precompile hint refinement failed", exc_info=True)
 
     def _engine_for(self, plan, task, backend: str, config):
         """Per-task engine normally; one shared (locked) engine AND shared

@@ -25,9 +25,13 @@ memory-bound: it must read ``ids`` once (8 B/row), each distinct mask once
 On CPU tensors the wrappers run the plain version, ``grouped_sums_multi_ref``
 (``grouped_sums_ref`` per column, stacked); on CUDA tensors they launch the
 kernel or raise. The module-level integer ``launches`` counts the launches.
+A warm run (``engine/compile_service.py``) calls them inside ``warming()``:
+its launches count in ``warm_launches`` only, never in ``launches`` or in a
+thread's record, so the counts of real stages stay what their stages did.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Optional, Sequence
@@ -43,6 +47,8 @@ WORKSPACE_BYTES = 1 << 20
 # launch concurrently, so each increment holds the lock
 launches = 0
 _launches_lock = threading.Lock()
+# the launches of warm runs, apart from ``launches``
+warm_launches = 0
 # each thread's record of its calls, the launches they took and its calls
 # by shape (an executor reports a task's share; a mesh program adds its
 # shard threads' records to its caller's)
@@ -75,6 +81,25 @@ def add_to_thread_record(record: dict) -> None:
     for key, n in record["shapes"].items():
         shapes[key] = shapes.get(key, 0) + n
     _thread.shapes = shapes
+
+
+
+@contextlib.contextmanager
+def warming():
+    """Counts this thread's calls inside the block as a warm run's: their
+    launches add to ``warm_launches`` alone."""
+    prev = getattr(_thread, "warming", False)
+    _thread.warming = True
+    try:
+        yield
+    finally:
+        _thread.warming = prev
+
+
+def is_warming() -> bool:
+    """Whether this thread is inside ``warming()``."""
+    return getattr(_thread, "warming", False)
+
 
 _lib = None
 _workspaces: dict = {}
@@ -188,11 +213,13 @@ def grouped_sums_multi(vals: Sequence[Optional[torch.Tensor]], masks: Sequence[t
     columns are int64 (counts allowed) or all float32 (no counts); ``ids``
     is int64, the masks bool, all 1-D of one length. One launch, or one per
     ``column_chunks`` chunk where the columns exceed what a launch takes."""
-    global launches
+    global launches, warm_launches
     if len(vals) != len(masks):
         raise ValueError(f"grouped_sums: {len(vals)} columns but {len(masks)} masks")
+    warm = is_warming()
     if ids.device.type == "cpu":
-        _thread.calls = getattr(_thread, "calls", 0) + 1
+        if not warm:
+            _thread.calls = getattr(_thread, "calls", 0) + 1
         return grouped_sums_multi_ref(vals, masks, ids, k)
     if ids.device.type != "cuda":
         raise ValueError(f"grouped_sums: no kernel for device {ids.device}")
@@ -218,11 +245,12 @@ def grouped_sums_multi(vals: Sequence[Optional[torch.Tensor]], masks: Sequence[t
     if dtype == torch.float32 and any(v is None for v in vals):
         raise TypeError("grouped_sums: counts are int64; they cannot join a float32 call")
 
-    _thread.calls = getattr(_thread, "calls", 0) + 1
-    shapes = getattr(_thread, "shapes", {})
-    key = (int(n), int(k), len(vals), dtype)
-    shapes[key] = shapes.get(key, 0) + 1
-    _thread.shapes = shapes
+    if not warm:
+        _thread.calls = getattr(_thread, "calls", 0) + 1
+        shapes = getattr(_thread, "shapes", {})
+        key = (int(n), int(k), len(vals), dtype)
+        shapes[key] = shapes.get(key, 0) + 1
+        _thread.shapes = shapes
 
     # columns with one mask side by side, so a launch reads that mask once
     first: dict = {}
@@ -245,8 +273,12 @@ def grouped_sums_multi(vals: Sequence[Optional[torch.Tensor]], masks: Sequence[t
             if err != 0:
                 raise RuntimeError(f"grouped_sums: kernel launch failed with CUDA error {err}")
             with _launches_lock:
-                launches += 1
-            _thread.launches = getattr(_thread, "launches", 0) + 1
+                if warm:
+                    warm_launches += 1
+                else:
+                    launches += 1
+            if not warm:
+                _thread.launches = getattr(_thread, "launches", 0) + 1
     return out
 
 

@@ -107,7 +107,13 @@ Phases, each of which passes or ends the run with a non-zero exit:
              OS processes against a scheduler in this process: q3 and q5
              once each, rows exact, device stages as above, then SIGTERM:
              both exit 0 and their work dirs are gone. Every run prints its
-             wall, stages, tasks and shuffle bytes. (1) also serves the
+             wall, stages, tasks and shuffle bytes. Precompile hints are on
+             (the default): after (1)'s runs the compile service's hint work
+             must drain with warm runs made (``hint_submitted`` and
+             ``hint_compiled`` above 0) and none failed, its stats printed;
+             (2) prints each first query's ``op.CompileHidden.time_s`` and
+             ``compile_cache.*`` sums (timing-dependent: printed, not held).
+             (1) also serves the
              flightsql phase (``run_flightsql_phase``): the port's Flight
              SQL service over the same scheduler, the eight tables
              registered through its ``register_parquet`` action, q1, q3 and
@@ -792,7 +798,9 @@ def counting():
     in, scale out), the aggregate stages whose group count k is in (0,
     MASKED_SEG_K] (the ones that launch it), the schema of every batch
     encoded for the device, and each device stage's (estimate equal to the
-    JAX engine's, eager estimate, measured peak) in ``stage_bytes``."""
+    JAX engine's, eager estimate, measured peak) in ``stage_bytes``. Warm
+    runs of the compile service (``grouped_sums.is_warming()`` on their
+    thread) are kept out of every record: they count their launches apart."""
     import ballista_tpu_torch.engine.memory_model as MM
     import ballista_tpu_torch.ops.grouped_sums as GS
     import ballista_tpu_torch.ops.kernels_torch as KT
@@ -806,29 +814,37 @@ def counting():
     ests, eagers = [0], [0]
 
     def gs(vals, masks, ids, k):
-        dtype = next((v.dtype for v in vals if v is not None), torch.int64)
-        key = (int(ids.shape[0]), int(k), len(vals), dtype)
-        rec["shapes"][key] = rec["shapes"].get(key, 0) + 1
+        if not GS.is_warming():
+            dtype = next((v.dtype for v in vals if v is not None), torch.int64)
+            key = (int(ids.shape[0]), int(k), len(vals), dtype)
+            rec["shapes"][key] = rec["shapes"].get(key, 0) + 1
         return real_gs(vals, masks, ids, k)
 
     def ps(c, n_pad):
         out = real_ps(c, n_pad)
-        rec["presums"].append((c.scale, out.scale))
+        if not GS.is_warming():
+            rec["presums"].append((c.scale, out.scale))
         return out
 
     def compute(sums):
-        rec["small_k_stages"] += 0 < sums.k <= KT.MASKED_SEG_K
+        if not GS.is_warming():
+            rec["small_k_stages"] += 0 < sums.k <= KT.MASKED_SEG_K
         return real_compute(sums)
 
     def enc(batch, pad=None):
-        rec["encoded"].append(tuple(batch.schema.names))
+        if not GS.is_warming():
+            rec["encoded"].append(tuple(batch.schema.names))
         return real_enc(batch, pad)
 
     def est(plan, leaves):
+        if GS.is_warming():
+            return real_est(plan, leaves)
         ests.append(real_est(plan, leaves))
         return ests[-1]
 
     def eager(plan, leaves):
+        if GS.is_warming():
+            return real_eager(plan, leaves)
         eagers.append(real_eager(plan, leaves))
         return eagers[-1]
 
@@ -1653,6 +1669,7 @@ def run_distributed_phase(device: str, tables: dict, tag: str, refs: tuple) -> d
     from ballista_tpu_torch.client.context import BallistaContext
     from ballista_tpu_torch.client.standalone import start_standalone_cluster
     from ballista_tpu_torch.config import SchedulerConfig
+    from ballista_tpu_torch.engine import compile_service as CS
     from ballista_tpu_torch.engine import torch_engine as TE
     from ballista_tpu_torch.scheduler.server import SchedulerServer
 
@@ -1664,6 +1681,9 @@ def run_distributed_phase(device: str, tables: dict, tag: str, refs: tuple) -> d
     work = os.path.join(DATA_DIR, "distributed")
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.time()
+    svc = CS.get_service()
+    svc.clear()
+    svc.reset_stats()
     cluster = start_standalone_cluster(n_executors=2, task_slots=2, device=device,
                                        work_dir=work)
     print(f"in-process cluster: scheduler and 2 torch executors on {device} (2 task slots "
@@ -1702,6 +1722,18 @@ def run_distributed_phase(device: str, tables: dict, tag: str, refs: tuple) -> d
                     "table": table, "wall": wall, "launches": rec["launches"],
                     "shapes": rec["shapes"], "presums": rec["presums"],
                     "metrics": job["metrics"], "job": job}
+        # the warm runs the cold jobs' hints queued (q3's top-10 over its final
+        # aggregate streams; q1's, q5's and q12's templates decline)
+        t0 = time.time()
+        if not svc.wait_idle(120):
+            raise AssertionError(f"distributed: hint work still pending: {svc.stats()}")
+        stats = svc.stats()
+        print(f"distributed hints: drained in {time.time() - t0:.3f} s; compile service "
+              f"{json.dumps(stats)}; warm grouped_sums launches {GS.warm_launches} [{tag}]",
+              flush=True)
+        if stats["hint_submitted"] <= 0 or stats["hint_compiled"] <= 0 or stats["hint_failed"]:
+            raise AssertionError(f"distributed: precompile hints warmed nothing or failed: "
+                                 f"{stats}")
         # admission plans against the budget the executors' card gives, which
         # is what their engines' safety net detects on it
         kind = torch.cuda.get_device_name(0) if on_card else "cpu"
@@ -1739,6 +1771,12 @@ def run_distributed_phase(device: str, tables: dict, tag: str, refs: tuple) -> d
             wall = time.time() - t1
             job = job_summary(sched.tasks.get_job(ctx.last_job_id))
             report_job(f"{q} processes", wall, job, "not visible here", tag)
+            m = job["metrics"]
+            print(f"distributed {q} processes: op.CompileHidden.time_s "
+                  f"{m.get('op.CompileHidden.time_s', 0.0):.6f}, compile_cache "
+                  + ", ".join(f"{k} {m.get(f'compile_cache.{k}', 0.0):g}"
+                              for k in ("opened", "hits", "misses", "evictions"))
+                  + f" [{tag}]", flush=True)
             check_result(table, expect, exact[q], q, [])
             check_job(f"{q} processes", job)
             if q in LAUNCHING and job["calls"] <= 0:
@@ -3369,7 +3407,8 @@ def rehearse(data_dir: str, parts: int = 2) -> None:
     real = GS.grouped_sums_multi
 
     def counted(*args):
-        GS.launches += 1
+        if not GS.is_warming():
+            GS.launches += 1
         return real(*args)
 
     tables = {t: os.path.join(data_dir, t) for t in TPCH_TABLES}

@@ -86,6 +86,10 @@ def test_no_jax_or_reference_imports_and_all_port_imports_resolve():
             "scheduler/etcd_gateway.py", "scheduler/external_scaler.py", "utils/avro.py",
             "native/__init__.py", "proto/flight_sql_pb2.py", "proto/kv_pb2.py",
             "proto/etcd_pb2.py", "proto/keda_pb2.py"} <= files
+    # and the compile service, the linter and the proto drift check, which
+    # complete the JAX package's module list
+    assert {"engine/compile_service.py", "analysis/lint.py", "analysis/proto_drift.py",
+            "tools/precompile_ab.py"} <= files
     bad = []
     for path in _port_sources():
         rel = os.path.relpath(path, REPO)
@@ -201,6 +205,12 @@ try:
     for t in TPCH_TABLES:
         rctx.register_parquet(t, os.path.join({data!r}, t))
     assert rctx.sql(q1).collect().equals(out)
+    # precompile hints are on (the default): the executors handed the
+    # scheduler's hints to the compile service, which drained them
+    from ballista_tpu_torch.engine.compile_service import get_service
+    assert get_service().wait_idle(60)
+    hints = get_service().stats()
+    assert hints["hint_submitted"] > 0 and hints["hint_failed"] == 0, hints
     graph = cluster.scheduler.tasks.get_job(rctx.last_job_id)
     ran = sum(s.stage_metrics.get("op.DeviceExecute.count", 0.0) for s in graph.stages.values())
     assert ran > 0 and all(s.stage_metrics.get("op.HostFallback.count", 0.0) == 0.0
@@ -261,6 +271,10 @@ import ballista_tpu_torch.client.cli, ballista_tpu_torch.client.functions
 import ballista_tpu_torch.pyballista, ballista_tpu_torch.scheduler.api
 import ballista_tpu_torch.scheduler.graph_dot, ballista_tpu_torch.scheduler.scale
 import ballista_tpu_torch.scheduler.ui, ballista_tpu_torch.obs.perfetto
+import ballista_tpu_torch.tools.precompile_ab
+from ballista_tpu_torch.analysis import lint, proto_drift
+assert lint.main([os.path.join({repo!r}, "ballista_tpu_torch")]) == 0
+assert all(not p for p in proto_drift.check_all().values())
 print("EXPLAIN", len(ctx.last_trace_spans))
 
 # q1 fused over a mesh of two shards on the CPU: one program, two threads
@@ -312,9 +326,10 @@ def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):
     """q1, a device window, a paged q3 join, q1 and a streamed final
     aggregate stage by stage through shuffle files, q1 through the port's
     scheduler and two executors by the remote client and as a Flight SQL
-    statement, q1 over an avro source, EXPLAIN VERIFY and ANALYZE of q1,
-    the REST API, scale controller, CLI, shim, kv, etcd, KEDA and native
-    modules, q1 fused over a mesh of two shards, and a fused aggregate across
+    statement (precompile hints on), q1 over an avro source, EXPLAIN VERIFY
+    and ANALYZE of q1, the REST API, scale controller, CLI, shim, kv, etcd,
+    KEDA, native and precompile A/B modules, the linter and the proto drift
+    check over the port, q1 fused over a mesh of two shards, and a fused aggregate across
     a mesh group of two processes, with JAX and the JAX package
     unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
