@@ -32,6 +32,7 @@ from ballista_tpu_torch.config import BallistaConfig
 from ballista_tpu_torch.errors import (
     BallistaError, PlanningError, PlanVerificationError, SqlError,
 )
+from ballista_tpu_torch.obs import tracing as obs
 from ballista_tpu_torch.ops.batch import ColumnBatch
 from ballista_tpu_torch.plan.logical import LogicalPlan
 from ballista_tpu_torch.plan.optimizer import optimize
@@ -261,6 +262,8 @@ class BallistaContext:
         self.catalog = Catalog(config=self.config)
         # per-operator metrics of the last query (filled by _execute_plan)
         self.last_engine_metrics: dict = {}
+        # op.Plan.* of the statement not yet executed
+        self._plan_metrics: dict = {}
         # the memory governor's mitigations of the last query, as PV007
         # warnings, and its report (memory_model.MemoryReport, or None when
         # no budget applied)
@@ -360,7 +363,11 @@ class BallistaContext:
         self.last_warnings = []
         self.last_memory_report = None
         self.last_serving = {}
-        stmt = parse_sql(sql)
+        self._plan_metrics = {}
+        with self._plan_phase():
+            stmt = parse_sql(sql)
+            if isinstance(stmt, Query):
+                return DataFrame(self, SqlPlanner(self.catalog.schemas()).plan(stmt))
         if isinstance(stmt, CreateExternalTable):
             if stmt.file_format == "parquet":
                 self.register_parquet(stmt.name, stmt.location)
@@ -400,9 +407,12 @@ class BallistaContext:
             return self._values_df(
                 [("plan_type", DataType.STRING), ("plan", DataType.STRING)], rows
             )
-        assert isinstance(stmt, Query)
-        plan = SqlPlanner(self.catalog.schemas()).plan(stmt)
-        return DataFrame(self, plan)
+        raise SqlError(f"unsupported statement {type(stmt).__name__}")
+
+    def _plan_phase(self):
+        """A phase of planning (``ballista.query.plan``): its time and count
+        go to ``op.Plan`` of the next query executed."""
+        return obs.Phase("ballista.query.plan", "op.Plan", _adder(self._plan_metrics))
 
     _FINDING_FIELDS = [
         ("severity", DataType.STRING),
@@ -477,6 +487,50 @@ class BallistaContext:
     def _execute_plan(self, plan: LogicalPlan, physical=None) -> pa.Table:
         """Run ``plan`` (or the given ``physical`` plan of it, which bypasses
         the serving caches: EXPLAIN ANALYZE runs to produce spans)."""
+        with self._plan_phase():
+            rkey, cached, planned = self._plan_execution(plan, physical)
+        metrics, self._plan_metrics = self._plan_metrics, {}
+        if cached is not None:
+            return cached
+        if self.remote is not None:
+            # planned, governed and verified scheduler-side; its analyzer
+            # warnings come back in last_warnings
+            from ballista_tpu_torch.client.remote import execute_remote
+
+            self.last_engine_metrics = {}
+            result = execute_remote(self, plan)
+            if rkey is not None:
+                self._get_result_cache().put(rkey, result)
+            return result
+        physical, engine, collector, trace_id, root = planned
+        obs.set_ambient(collector, trace_id, root.span_id)
+        try:
+            batches = engine.execute_all(physical)
+        finally:
+            obs.clear_ambient()
+        with obs.Phase("ballista.query.result", "op.Result", _adder(metrics)):
+            out_schema = physical.schema()
+            tables = [b.to_arrow() for b in batches if b.num_rows or len(batches) == 1]
+            if not tables:
+                tables = [ColumnBatch.empty(out_schema).to_arrow()]
+            result = pa.concat_tables(tables)
+            root.set("rows", result.num_rows)
+            root.finish()
+            self.last_trace_id = trace_id
+            self.last_trace_spans = collector.drain()
+            self.last_job_id = None
+            if rkey is not None:
+                self._get_result_cache().put(rkey, result)
+        # per-query operator metrics for callers (device accounting) — the
+        # engine itself is per-query — with the query's planning and result
+        self.last_engine_metrics = dict(engine.op_metrics, **metrics)
+        return result
+
+    def _plan_execution(self, plan: LogicalPlan, physical=None) -> tuple:
+        """``_execute_plan``'s planning: (result-cache key, the cached answer
+        or None, and for a standalone query not answered from the cache its
+        governed physical plan, engine, span collector, trace id and root
+        span, else None)."""
         from ballista_tpu_torch.config import (
             BALLISTA_SERVING_PLAN_CACHE,
             BALLISTA_SERVING_RESULT_CACHE,
@@ -497,20 +551,10 @@ class BallistaContext:
             cached = self._get_result_cache().get(rkey)
             if cached is not None:
                 self.last_serving["result_cache"] = "hit"
-                return cached
+                return rkey, cached, None
             self.last_serving["result_cache"] = "miss"
         if self.remote is not None:
-            # planned, governed and verified scheduler-side; its analyzer
-            # warnings come back in last_warnings
-            from ballista_tpu_torch.client.remote import execute_remote
-
-            self.last_engine_metrics = {}
-            result = execute_remote(self, plan)
-            if rkey is not None:
-                self._get_result_cache().put(rkey, result)
-            return result
-        from ballista_tpu_torch.obs import tracing as obs
-
+            return rkey, None, None
         collector = obs.SpanCollector()
         trace_id = obs.new_trace_id()
         root = collector.start("query", trace_id=trace_id, service="client")
@@ -548,27 +592,7 @@ class BallistaContext:
         self._last_executed_physical = physical
         engine = self._get_engine()
         engine.trace_ctx = obs.TraceCtx(collector, trace_id, root.span_id)
-        obs.set_ambient(collector, trace_id, root.span_id)
-        try:
-            batches = engine.execute_all(physical)
-        finally:
-            obs.clear_ambient()
-        # per-query operator metrics for callers (device accounting) — the
-        # engine itself is per-query
-        self.last_engine_metrics = dict(engine.op_metrics)
-        out_schema = physical.schema()
-        tables = [b.to_arrow() for b in batches if b.num_rows or len(batches) == 1]
-        if not tables:
-            tables = [ColumnBatch.empty(out_schema).to_arrow()]
-        result = pa.concat_tables(tables)
-        root.set("rows", result.num_rows)
-        root.finish()
-        self.last_trace_id = trace_id
-        self.last_trace_spans = collector.drain()
-        self.last_job_id = None
-        if rkey is not None:
-            self._get_result_cache().put(rkey, result)
-        return result
+        return rkey, None, (physical, engine, collector, trace_id, root)
 
     # ---- serving caches ---------------------------------------------------------------
     def _serving_key(self, plan: LogicalPlan):
@@ -682,3 +706,11 @@ class BallistaContext:
         from ballista_tpu_torch.plan.logical import EmptyRelation
 
         return _Static(ctx, EmptyRelation())
+
+
+def _adder(metrics: dict):
+    """``add(key, value)`` summing into ``metrics`` (an ``obs.Phase``'s)."""
+    def add(key: str, value: float) -> None:
+        metrics[key] = metrics.get(key, 0.0) + value
+
+    return add

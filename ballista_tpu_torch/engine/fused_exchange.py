@@ -38,7 +38,6 @@ what that device's shards hold at once) and, on a card, its measured peak
 """
 from __future__ import annotations
 
-import time
 from dataclasses import replace
 from typing import Optional
 
@@ -95,40 +94,40 @@ def _build_sharded_input(engine, child: P.PhysicalPlan, n_dev: int) -> KT.Encode
     past ``ballista.tpu.fuse_input_max_rows`` (checked before the concat)."""
     on_host = bool(engine.config.get(BALLISTA_TPU_FUSED_INPUT_ON_HOST))
     cap = int(engine.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
-    if on_host:
-        engine._host_only += 1
-    try:
-        batches = []
-        rows = 0
-        for i in range(child.output_partitions()):
-            b = engine._exec(child, i)
-            rows += b.num_rows
-            if cap and rows > cap:
-                raise _EmptyInput()
-            batches.append(b)
-    finally:
+    with engine._phase("ballista.fused.input"):
         if on_host:
-            engine._host_only -= 1
-    big = ColumnBatch.concat(batches)
-    if big.num_rows == 0:
-        raise _EmptyInput()
-    return _encode_sharded(engine, big, n_dev)
+            engine._host_only += 1
+        try:
+            batches = []
+            rows = 0
+            for i in range(child.output_partitions()):
+                b = engine._exec(child, i)
+                rows += b.num_rows
+                if cap and rows > cap:
+                    raise _EmptyInput()
+                batches.append(b)
+        finally:
+            if on_host:
+                engine._host_only -= 1
+        big = ColumnBatch.concat(batches)
+        if big.num_rows == 0:
+            raise _EmptyInput()
+        return _encode_sharded(engine, big, n_dev)
 
 
 def _encode_sharded(engine, batch: ColumnBatch, n_dev: int) -> KT.EncodedBatch:
     per_dev = KT.bucket_size(max(1, -(-batch.num_rows // n_dev)))
-    t0 = time.time()
-    enc = KT.encode_host_batch(batch, pad=per_dev * n_dev)
-    engine._metric("op.HostEncode.time_s", time.time() - t0)
-    return enc
+    with engine._phase("ballista.leaf.encode", "op.HostEncode"):
+        return KT.encode_host_batch(batch, pad=per_dev * n_dev)
 
 
 def _on_mesh(engine, enc: KT.EncodedBatch, mesh: list, cache_key: Optional[tuple]) -> list:
     """Shard ``i``'s arrays on ``mesh[i]``, through the device cache under
     ``cache_key + (i,)`` unless ``cache_key`` is None."""
-    return [engine._cached_on_device(None if cache_key is None else cache_key + (i,),
-                                     arrays, dev)
-            for i, (arrays, dev) in enumerate(zip(split_rows(enc.arrays, len(mesh)), mesh))]
+    with engine._phase("ballista.leaf.h2d"):
+        return [engine._cached_on_device(None if cache_key is None else cache_key + (i,),
+                                         arrays, dev)
+                for i, (arrays, dev) in enumerate(zip(split_rows(enc.arrays, len(mesh)), mesh))]
 
 
 def _sharded_input(engine, child: P.PhysicalPlan, mesh: list):
@@ -143,8 +142,8 @@ def _sharded_input(engine, child: P.PhysicalPlan, mesh: list):
     if key is None:
         enc = _build_sharded_input(engine, child, n_dev)
         return enc, _on_mesh(engine, enc, mesh, None)
-    enc = TE._ENC_CACHE.get_with(("fused_in", key),
-                                 lambda: _build_sharded_input(engine, child, n_dev))
+    enc = engine._leaf_lookup(TE._ENC_CACHE, ("fused_in", key),
+                              lambda: _build_sharded_input(engine, child, n_dev))
     shards = _on_mesh(engine, enc, mesh, ("fused_dev", key))
     pin = engine.config.get(BALLISTA_TPU_PIN_DEVICE_CACHE)
     for i, dev in enumerate(mesh):
@@ -194,12 +193,13 @@ def _run_mesh(engine, fns: list, shard_args: list, mesh: list, rows: int, estima
     # no warm run falls inside the measured window (compile_service.WINDOW)
     with CS.WINDOW.stage():
         bases = {}
-        for c in cards:
-            # each card's allocator peak is reset to measure the program
-            torch.cuda.synchronize(c)
-            engine._metric_max("op.DevicePeak.max_bytes", MM.device_peak_bytes(c))
-            torch.cuda.reset_peak_memory_stats(c)
-            bases[c] = torch.cuda.memory_allocated(c)
+        with engine._phase("ballista.stage.memory"):
+            for c in cards:
+                # each card's allocator peak is reset to measure the program
+                engine._sync(c)
+                engine._metric_max("op.DevicePeak.max_bytes", MM.device_peak_bytes(c))
+                torch.cuda.reset_peak_memory_stats(c)
+                bases[c] = torch.cuda.memory_allocated(c)
         records: list = [None] * len(mesh)
 
         def body(i, *arrays):
@@ -208,36 +208,38 @@ def _run_mesh(engine, fns: list, shard_args: list, mesh: list, rows: int, estima
             records[i] = GS.record_since(before)
             return out
 
-        t0 = time.time()
-        outs = shard_map(body, [(i, *a) for i, a in enumerate(shard_args)], mesh, timeout, group)
-        if len(mesh) > 1 or group is not None:
-            # the bodies ran on the shard threads: their grouped_sums calls
-            # count on the caller's
-            for record in records:
-                GS.add_to_thread_record(record)
-        if len(mesh) == 1:
-            out = list(outs[0])
-        else:
-            out = [torch.cat([o[j].to(engine.device) for o in outs]) for j in range(len(outs[0]))]
-        engine._sync()
-        dt = time.time() - t0
-        engine._metric("op.DeviceExecute.time_s", dt)
-        engine._metric("op.DeviceExecute.count", 1.0)
+        ex = engine._phase("ballista.device.execute", "op.DeviceExecute", span="DeviceExecute")
+        with ex:
+            with engine._phase("ballista.stage.dispatch", "op.DeviceDispatch"):
+                outs = shard_map(body, [(i, *a) for i, a in enumerate(shard_args)], mesh,
+                                 timeout, group)
+                if len(mesh) > 1 or group is not None:
+                    # the bodies ran on the shard threads: their grouped_sums
+                    # calls count on the caller's
+                    for record in records:
+                        GS.add_to_thread_record(record)
+                if len(mesh) == 1:
+                    out = list(outs[0])
+                else:
+                    out = [torch.cat([o[j].to(engine.device) for o in outs])
+                           for j in range(len(outs[0]))]
+            engine._sync()
+            dt = ex.stop()
+            attrs = {"rows": float(rows), "program": "fused"}
+            per_dev: dict = {}
+            for i, dev in enumerate(mesh):
+                per_dev[dev] = per_dev.get(dev, 0) + estimate(i)
+            est = max(per_dev.values())
+            attrs["hbm_est_bytes"] = int(est)
+            engine._metric_max("op.HbmEstEager.max_bytes", est)
+            if cards:
+                peak = max(MM.device_peak_bytes(c) - bases[c] + resident[c] for c in cards)
+                attrs["hbm_peak_bytes"] = int(peak)
+                engine._metric_max("op.HbmPeak.max_bytes", peak)
+                for c in cards:
+                    engine._metric_max("op.DevicePeak.max_bytes", MM.device_peak_bytes(c))
+            ex.attrs = attrs
         engine._metric("op.DeviceExecute.rows", float(rows))
-        attrs = {"rows": float(rows), "program": "fused"}
-        per_dev: dict = {}
-        for i, dev in enumerate(mesh):
-            per_dev[dev] = per_dev.get(dev, 0) + estimate(i)
-        est = max(per_dev.values())
-        attrs["hbm_est_bytes"] = int(est)
-        engine._metric_max("op.HbmEstEager.max_bytes", est)
-        if cards:
-            peak = max(MM.device_peak_bytes(c) - bases[c] + resident[c] for c in cards)
-            attrs["hbm_peak_bytes"] = int(peak)
-            engine._metric_max("op.HbmPeak.max_bytes", peak)
-            for c in cards:
-                engine._metric_max("op.DevicePeak.max_bytes", MM.device_peak_bytes(c))
-        engine._record_span("DeviceExecute", t0, dt, attrs)
     return out, dt
 
 
@@ -382,7 +384,7 @@ def build_side_encoding(engine, join_plan: P.HashJoinExec, n_dev: int) -> KT.Enc
     rkey = _input_content_key(rrep.input, n_dev)
     if rkey is None:
         return build()
-    return TE._ENC_CACHE.get_with(("fused_jb", rkey, _on_sig(join_plan)), build)
+    return engine._leaf_lookup(TE._ENC_CACHE, ("fused_jb", rkey, _on_sig(join_plan)), build)
 
 
 def _on_sig(join_plan: P.HashJoinExec) -> tuple:
@@ -577,7 +579,9 @@ def make_join_body(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.En
 def _fused_rows(engine, holder: dict, out: list) -> Optional[ColumnBatch]:
     """The program's rows on the host; None when its last output, the
     mesh's unfusable count, is non-zero (a host sync)."""
-    if int(out[-1].sum()):
+    with engine._wait():
+        unfusable = int(out[-1].sum())
+    if unfusable:
         # rows past an exchange's capacity, or repeated build keys: the
         # result is incomplete
         return None

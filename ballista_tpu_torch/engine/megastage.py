@@ -83,8 +83,9 @@ def run_megastage(engine, ms: P.MegastageExec, n_dev: int) -> Optional[list[Colu
         if lkey is None:
             lenc = FX._build_sharded_input(engine, lrep.input, n_dev)
         else:
-            lenc = TE._ENC_CACHE.get_with(
-                ("fused_in", lkey), lambda: FX._build_sharded_input(engine, lrep.input, n_dev))
+            lenc = engine._leaf_lookup(
+                TE._ENC_CACHE, ("fused_in", lkey),
+                lambda: FX._build_sharded_input(engine, lrep.input, n_dev))
     except FX._EmptyInput:
         return None
     renc = FX.build_side_encoding(engine, join_plan, n_dev)

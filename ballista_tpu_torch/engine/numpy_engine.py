@@ -15,6 +15,7 @@ import pyarrow.parquet as pq
 
 from ballista_tpu_torch.engine.engine import ExecutionEngine
 from ballista_tpu_torch.errors import ExecutionError
+from ballista_tpu_torch.obs import tracing as obs
 from ballista_tpu_torch.ops import kernels_np as K
 from ballista_tpu_torch.ops.batch import Column, ColumnBatch
 from ballista_tpu_torch.ops.eval_np import evaluate, to_filter_mask
@@ -91,35 +92,38 @@ class NumpyEngine(ExecutionEngine):
 
     # ---- dispatch ------------------------------------------------------------------
     def _exec(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
-        import time as _time
-
-        t0 = _time.time()
-        self._op_stack.append([0.0])
-        try:
-            out = self._exec_inner(plan, part)
-        finally:
-            child_time = self._op_stack.pop()[0]
-        total = _time.time() - t0
-        if self._op_stack:
-            self._op_stack[-1][0] += total
         name = type(plan).__name__
+        stack = self._op_stack
+        with obs.Phase(f"ballista.op.{name}", trace=self.trace_ctx, span=name) as ph:
+            stack.append([0.0])
+            try:
+                out = self._exec_inner(plan, part)
+            finally:
+                child_time = stack.pop()[0]
+            total = ph.stop()
+            self_s = max(0.0, total - child_time)
+            ph.attrs = {"rows": out.num_rows, "partition": part,
+                        "self_ms": round(self_s * 1000, 3)}
+        if stack:
+            stack[-1][0] += total
         with self._lock:
             self.op_metrics[f"op.{name}.time_s"] = (
-                self.op_metrics.get(f"op.{name}.time_s", 0.0)
-                + max(0.0, total - child_time)
+                self.op_metrics.get(f"op.{name}.time_s", 0.0) + self_s
             )
             self.op_metrics[f"op.{name}.output_rows"] = (
                 self.op_metrics.get(f"op.{name}.output_rows", 0.0) + out.num_rows
             )
-        self._record_span(
-            name, t0, total,
-            {
-                "rows": out.num_rows,
-                "partition": part,
-                "self_ms": round(max(0.0, total - child_time) * 1000, 3),
-            },
-        )
         return out
+
+    def _metric(self, key: str, val: float) -> None:
+        with self._lock:
+            self.op_metrics[key] = self.op_metrics.get(key, 0.0) + val
+
+    def _phase(self, name: str, counter: Optional[str] = None,
+               span: Optional[str] = None) -> obs.Phase:
+        """A phase of this engine's work (``obs.Phase``): its counter in
+        ``op_metrics``, its span dict (``span``) under the trace context."""
+        return obs.Phase(name, counter, self._metric, self.trace_ctx, span)
 
     def _record_span(self, name: str, t0_wall: float, dur_s: float, attrs: dict) -> None:
         ctx = self.trace_ctx

@@ -57,7 +57,16 @@ stage's estimate ``hbm_est_bytes`` and, on the card, its measured peak
 ``eager`` for a stage, ``fused`` for a fused exchange or join), and
 ``PagedJoin`` per paged join. Each closes after the synchronisation that
 ends its device work, so it holds device time, not enqueue time. There is no
-``DeviceCompile`` span: eager torch compiles nothing.
+``DeviceCompile`` span: eager torch compiles nothing. Every phase of the
+stage driver is an ``obs.Phase``: while ``torch.profiler`` records it is a
+``ballista.*`` range on the profiler's timeline (the stage, its leaves,
+estimate, device arguments, memory accounting, dispatch, waits and fetch,
+leaf encodes and copies), and its time and count go to ``op_metrics``
+(``op.DeviceDispatch``, ``op.DeviceWait``, ``op.HostEncode``, ...; the list
+is in ``docs/observability.md``). A stage is a child of the operator that
+runs it, so that operator's exclusive time leaves the stage out. The leaf
+caches' lookups count in ``op.LeafCache.hits`` and ``misses``, and an
+execution's grouped_sums record in ``op.GroupedSums.*``.
 
 PyTorch runs eagerly, so a stage program is traced anew on every call: there
 is no compile cache. What a first run costs instead is first launches (CUDA's
@@ -83,6 +92,7 @@ chunk's states on the device in ``merge`` mode.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -104,6 +114,7 @@ from ballista_tpu_torch.engine import compile_service as CS
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine.numpy_engine import NumpyEngine
 from ballista_tpu_torch.errors import ExecutionError, IciDemoted
+from ballista_tpu_torch.ops import grouped_sums as GS
 from ballista_tpu_torch.ops import kernels_np as KNP
 from ballista_tpu_torch.ops import kernels_torch as KT
 from ballista_tpu_torch.ops.batch import ColumnBatch
@@ -249,8 +260,13 @@ class TorchEngine(NumpyEngine):
         self._fused.clear()
         self._tiny_keepalive.clear()
         self._build_prep.clear()
+        before = GS.thread_record()
         out = [self._exec(plan, i) for i in range(plan.output_partitions())]
-        self._note_device_peak()
+        with self._phase("ballista.stage.memory"):
+            self._note_device_peak()
+        # the execution's grouped_sums calls, its mesh shards' included
+        for key, val in GS.record_metrics(GS.record_since(before)).items():
+            self._metric(key, val)
         return out
 
     # ---- dispatch --------------------------------------------------------------
@@ -286,31 +302,40 @@ class TorchEngine(NumpyEngine):
         return super()._exec(plan, part)  # host kernels
 
     def _timed_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
-        t0 = time.time()
-        hidden_before = self.op_metrics.get("op.CompileHidden.time_s", 0.0)
-        out = self._run_stage(plan, part)
-        # the stage ends in its fetch to the host, which waits for the device
-        elapsed = time.time() - t0
-        self._metric("op.CompiledStage.time_s", elapsed)
-        # the JAX span's attrs; an eager stage compiles nothing
-        attrs = {
-            "rows": out.num_rows,
-            "partition": part,
-            "compile_ms": 0.0,
-            "execute_ms": round(elapsed * 1000, 3),
-        }
-        if self._last_hbm_est:
-            attrs["hbm_est_bytes"] = int(self._last_hbm_est)
-        if self._last_hbm_peak:
-            attrs["hbm_peak_bytes"] = int(self._last_hbm_peak)
-        if self._last_dict_shared:
-            attrs["dict_shared_cols"] = self._last_dict_shared
-        if self._last_dict_per_batch:
-            attrs["dict_per_batch_cols"] = self._last_dict_per_batch
-        hidden_s = self.op_metrics.get("op.CompileHidden.time_s", 0.0) - hidden_before
-        if hidden_s:
-            attrs["compile_hidden_ms"] = round(hidden_s * 1000, 3)
-        self._record_span("CompiledStage", t0, elapsed, attrs)
+        # a child of the operator that called it, as a host operator is: the
+        # caller's exclusive time leaves the stage out
+        stack = self._op_stack
+        stack.append([0.0])
+        ph = self._phase("ballista.stage", "op.CompiledStage", span="CompiledStage")
+        try:
+            with ph:
+                hidden_before = self.op_metrics.get("op.CompileHidden.time_s", 0.0)
+                out = self._run_stage(plan, part)
+                # the stage ends in its fetch to the host, which waits for the device
+                elapsed = ph.stop()
+                # the JAX span's attrs; an eager stage compiles nothing
+                attrs = {
+                    "rows": out.num_rows,
+                    "partition": part,
+                    "compile_ms": 0.0,
+                    "execute_ms": round(elapsed * 1000, 3),
+                }
+                if self._last_hbm_est:
+                    attrs["hbm_est_bytes"] = int(self._last_hbm_est)
+                if self._last_hbm_peak:
+                    attrs["hbm_peak_bytes"] = int(self._last_hbm_peak)
+                if self._last_dict_shared:
+                    attrs["dict_shared_cols"] = self._last_dict_shared
+                if self._last_dict_per_batch:
+                    attrs["dict_per_batch_cols"] = self._last_dict_per_batch
+                hidden_s = self.op_metrics.get("op.CompileHidden.time_s", 0.0) - hidden_before
+                if hidden_s:
+                    attrs["compile_hidden_ms"] = round(hidden_s * 1000, 3)
+                ph.attrs = attrs
+        finally:
+            stack.pop()
+            if stack:
+                stack[-1][0] += ph.stop()
         return out
 
     def _exec_inner(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
@@ -318,17 +343,35 @@ class TorchEngine(NumpyEngine):
             self._metric("op.HostFallback.count", 1.0)
         return super()._exec_inner(plan, part)
 
-    def _metric(self, key: str, val: float) -> None:
-        with self._lock:
-            self.op_metrics[key] = self.op_metrics.get(key, 0.0) + val
-
     def _metric_max(self, key: str, val: float) -> None:
         with self._lock:
             self.op_metrics[key] = max(self.op_metrics.get(key, 0.0), float(val))
 
-    def _sync(self) -> None:
+    def _sync(self, device=None) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with self._wait():
+                torch.cuda.synchronize(device or self.device)
+
+    def _wait(self):
+        """The phase of a wait of the host on the card (``op.DeviceWait``);
+        on the CPU there is none to wait for."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return self._phase("ballista.device.wait", "op.DeviceWait")
+
+    def _leaf_lookup(self, cache: LoadingCache, key, load):
+        """``cache.get_with(key, load)``, counted in ``op.LeafCache.hits``
+        or ``op.LeafCache.misses`` as the cache counts it (a load that
+        another thread made for this key is a hit)."""
+        loaded = []
+
+        def loader():
+            loaded.append(True)
+            return load()
+
+        value = cache.get_with(key, loader)
+        self._metric("op.LeafCache.misses" if loaded else "op.LeafCache.hits", 1.0)
+        return value
 
     def _dev_key(self, key: tuple, device=None) -> tuple:
         """A device-cache key: the content key with its device (default the
@@ -755,9 +798,17 @@ class TorchEngine(NumpyEngine):
         pair runs as an ordinary device join sized to fit the budget.
         Matching rows share a bucket, so the passes' results together are
         the join (in another row order)."""
+        with self._phase("ballista.join.paged", span="PagedJoin") as ph:
+            out, attrs = self._paged_passes(plan, part)
+            ph.attrs = attrs
+        self._metric("op.PagedJoin.count", 1.0)
+        self._metric("op.PagedJoin.passes", float(attrs["passes"]))
+        return out
+
+    def _paged_passes(self, plan: P.HashJoinExec, part: int) -> tuple:
+        """The paged join's result and its span's attrs."""
         from ballista_tpu_torch.engine.spill import PartitionSpill
 
-        t0 = time.time()
         probe = self._exec(plan.left, part)
         build = self._exec(plan.right, part)
         budget = self._hbm_budget()
@@ -819,18 +870,9 @@ class TorchEngine(NumpyEngine):
             b_spill.close()
         out = ColumnBatch.concat(pieces) if pieces else ColumnBatch.empty(plan.schema())
         # each pass ended in its fetch to the host
-        dt = time.time() - t0
-        self._metric("op.PagedJoin.count", 1.0)
-        self._metric("op.PagedJoin.passes", float(passes))
-        self._record_span(
-            "PagedJoin", t0, dt,
-            {
-                "rows": out.num_rows, "partition": part, "passes": passes,
-                "probe_rows": probe.num_rows, "build_rows": build.num_rows,
-                "hbm_budget_bytes": budget,
-            },
-        )
-        return out
+        return out, {"rows": out.num_rows, "partition": part, "passes": passes,
+                     "probe_rows": probe.num_rows, "build_rows": build.num_rows,
+                     "hbm_budget_bytes": budget}
 
     def _note_device_peak(self) -> None:
         """Fold the allocator's high-water mark since its last reset into
@@ -843,7 +885,8 @@ class TorchEngine(NumpyEngine):
 
     # ---- the stage driver ----------------------------------------------------------
     def _run_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
-        leaves = self._collect_leaves(plan, part)
+        with self._phase("ballista.stage.leaves"):
+            leaves = self._collect_leaves(plan, part)
         # this stage's CompiledStage attrs, reset so a host path taken below
         # (a tiny stage) cannot report the previous stage's
         self._last_hbm_est = 0
@@ -867,47 +910,52 @@ class TorchEngine(NumpyEngine):
         # the stage's device bytes, estimated from its real leaves: past the
         # budget, its widest partitioned join pages (a safety net under
         # admission, which plans from row estimates)
-        self._last_hbm_est = MM.estimate_program_bytes(plan, leaves)
-        self._metric_max("op.HbmEst.max_bytes", self._last_hbm_est)
-        est = MM.estimate_eager_program_bytes(plan, leaves)
-        self._metric_max("op.HbmEstEager.max_bytes", est)
-        budget = self._hbm_budget()
-        if (budget > 0 and est > self._paged_threshold() * budget and not self._in_paged
-                and self._paged_join_enabled()):
-            # never a join whose output a fused exchange supplied (an "out"
-            # leaf): the fused program serves the whole join on partition 0,
-            # while a paged join reads one exchange partition per task, so
-            # paging it would lose every row outside partition 0
-            candidates = [n for n in P.walk_physical(plan)
-                          if isinstance(n, P.HashJoinExec) and n.on and not n.collect_build
-                          and not n.paged and leaves.get(id(n), ("",))[0] != "out"]
-            if candidates:
-                raise _PagedJoinFallback(
-                    max(candidates, key=lambda n: MM.estimate_eager_program_bytes(n, leaves)))
+        with self._phase("ballista.stage.estimate"):
+            self._last_hbm_est = MM.estimate_program_bytes(plan, leaves)
+            self._metric_max("op.HbmEst.max_bytes", self._last_hbm_est)
+            est = MM.estimate_eager_program_bytes(plan, leaves)
+            self._metric_max("op.HbmEstEager.max_bytes", est)
+            budget = self._hbm_budget()
+            if (budget > 0 and est > self._paged_threshold() * budget and not self._in_paged
+                    and self._paged_join_enabled()):
+                # never a join whose output a fused exchange supplied (an "out"
+                # leaf): the fused program serves the whole join on partition 0,
+                # while a paged join reads one exchange partition per task, so
+                # paging it would lose every row outside partition 0
+                candidates = [n for n in P.walk_physical(plan)
+                              if isinstance(n, P.HashJoinExec) and n.on and not n.collect_build
+                              and not n.paged and leaves.get(id(n), ("",))[0] != "out"]
+                if candidates:
+                    raise _PagedJoinFallback(
+                        max(candidates, key=lambda n: MM.estimate_eager_program_bytes(n, leaves)))
 
         if self._precompile_enabled():
             self._adopt_warm(plan, leaves)
-        tensors = self._device_args(leaves)
+        with self._phase("ballista.stage.args"):
+            tensors = self._device_args(leaves)
         stage_fn, holder = _make_stage_fn(plan, _stage_layout(leaves))
 
+        in_rows = float(sum(enc.n_rows for _, enc, _, _, _ in leaves.values()))
         # no warm run falls inside the measured window (compile_service.WINDOW)
         with CS.WINDOW.stage():
-            base = self._stage_peak_start()
-            t0 = time.time()
-            out = stage_fn(*tensors)
-            self._sync()
-            dt = time.time() - t0
+            with self._phase("ballista.stage.memory"):
+                base = self._stage_peak_start()
+            with self._phase("ballista.device.execute", "op.DeviceExecute",
+                             span="DeviceExecute") as ex:
+                ex.attrs = {"rows": in_rows, "program": "eager"}
+                # the eager program's launches, and any waits inside them
+                with self._phase("ballista.stage.dispatch", "op.DeviceDispatch"):
+                    out = stage_fn(*tensors)
+                self._sync()
             if base is not None:
-                # arguments (each tensor once) plus what the program allocated
-                resident = sum(t.numel() * t.element_size()
-                               for t in {t.data_ptr(): t for t in tensors}.values())
-                self._last_hbm_peak = MM.measured_program_bytes(self.device, base, resident)
-                self._metric_max("op.HbmPeak.max_bytes", self._last_hbm_peak)
-        in_rows = float(sum(enc.n_rows for _, enc, _, _, _ in leaves.values()))
-        self._metric("op.DeviceExecute.time_s", dt)
-        self._metric("op.DeviceExecute.count", 1.0)
+                with self._phase("ballista.stage.memory"):
+                    # arguments (each tensor once) plus what the program allocated
+                    resident = sum(t.numel() * t.element_size()
+                                   for t in {t.data_ptr(): t for t in tensors}.values())
+                    self._last_hbm_peak = MM.measured_program_bytes(self.device, base,
+                                                                    resident)
+                    self._metric_max("op.HbmPeak.max_bytes", self._last_hbm_peak)
         self._metric("op.DeviceExecute.rows", in_rows)
-        self._record_span("DeviceExecute", t0, dt, {"rows": in_rows, "program": "eager"})
 
         out_db = KT.device_batch_from_outputs(holder["meta"], list(out), 0)
         return self._fetch(out_db)
@@ -945,9 +993,8 @@ class TorchEngine(NumpyEngine):
         return torch.cuda.memory_allocated(self.device)
 
     def _fetch(self, out_db) -> ColumnBatch:
-        t0 = time.time()
-        batch = KT.to_host(out_db)
-        self._metric("op.DeviceFetch.time_s", time.time() - t0)
+        with self._phase("ballista.stage.fetch", "op.DeviceFetch"):
+            batch = KT.to_host(out_db, self._wait)
         self._metric(
             "op.DeviceFetch.bytes",
             float(sum(c.data.nbytes for c in batch.columns
@@ -1029,7 +1076,7 @@ class TorchEngine(NumpyEngine):
         if cache_key is None:
             return self._to_device(arrays, device)
         key = self._dev_key(cache_key, device)
-        cached = _DEV_CACHE.get_with(key, lambda: self._to_device(arrays, device))
+        cached = self._leaf_lookup(_DEV_CACHE, key, lambda: self._to_device(arrays, device))
         if len(cached) != len(arrays):  # stale entry shape: reload
             cached = self._to_device(arrays, device)
             _DEV_CACHE.put(key, cached)
@@ -1040,11 +1087,10 @@ class TorchEngine(NumpyEngine):
         issued non-blocking from pinned memory and awaited together, so the
         transfer time stays out of the execute time."""
         device = torch.device(device or self.device)
-        t0 = time.time()
-        out = [KT.host_to_device(a, device) for a in arrays]
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        self._metric("op.DeviceTransfer.time_s", time.time() - t0)
+        with self._phase("ballista.leaf.h2d", "op.DeviceTransfer"):
+            out = [KT.host_to_device(a, device) for a in arrays]
+            if device.type == "cuda":
+                self._sync(device)
         self._metric("op.DeviceTransfer.bytes", float(sum(a.nbytes for a in arrays)))
         return out
 
@@ -1109,7 +1155,8 @@ class TorchEngine(NumpyEngine):
             if key is None:
                 enc = self._encode(self._exec_child(node, part))
             else:
-                enc = _ENC_CACHE.get_with(key, lambda: self._encode(self._exec_child(node, part)))
+                enc = self._leaf_lookup(_ENC_CACHE, key,
+                                        lambda: self._encode(self._exec_child(node, part)))
             leaves[id(node)] = ("out", enc, None, key, node)
 
         visit(plan)
@@ -1122,10 +1169,8 @@ class TorchEngine(NumpyEngine):
         if pre is not None:
             batch._pre_enc = None
             return pre
-        t0 = time.time()
-        enc = KT.encode_host_batch(batch)
-        self._metric("op.HostEncode.time_s", time.time() - t0)
-        return enc
+        with self._phase("ballista.leaf.encode", "op.HostEncode"):
+            return KT.encode_host_batch(batch)
 
     def _prepared_build(self, node: P.HashJoinExec, part: int) -> tuple:
         """The join's build side sorted by key hash and encoded, once per
@@ -1144,9 +1189,8 @@ class TorchEngine(NumpyEngine):
                 build = self._materialized_single(node.right)
             else:
                 build = self._exec_child(node.right, part)
-            t0 = time.time()
-            prep = _prep_build(build, node, self._build_dup_cap(node, build))
-            self._metric("op.HostEncode.time_s", time.time() - t0)
+            with self._phase("ballista.leaf.encode", "op.HostEncode"):
+                prep = _prep_build(build, node, self._build_dup_cap(node, build))
             self._build_prep[key] = prep
         return prep
 

@@ -16,9 +16,10 @@ rows it measured. Hints are advisory: a bad one is counted and never fails a
 task. A torch task reports the warmed-key record's activity while it ran
 (``compile_cache.{opened,hits,misses,evictions}``, process-wide, so
 concurrent tasks share it) and the
-grouped_sums calls it made (``op.GroupedSums.calls``) and the kernel
-launches they took on the card (``op.GroupedSums.launches``, 0 on the CPU),
-its mesh programs' shard threads included, and those calls by shape
+grouped_sums calls it made (``op.GroupedSums.calls``), the kernel
+launches they took on the card (``op.GroupedSums.launches``, 0 on the CPU)
+and their least bytes (``op.GroupedSums.min_bytes``), its mesh programs'
+shard threads included, and those calls by shape
 (``op.GroupedSums.shape.<rows>x<k>x<columns>.<dtype>``), with its metrics.
 """
 from __future__ import annotations
@@ -233,12 +234,11 @@ class Executor:
             for k, v in dict(getattr(engine, "op_metrics", {})).items():
                 status.metrics[k] = v
             if gs0 is not None:
-                gs = _grouped_sums_record(gs0)
-                status.metrics["op.GroupedSums.calls"] = float(gs["calls"])
-                status.metrics["op.GroupedSums.launches"] = float(gs["launches"])
-                for (n, k, ncols, dtype), calls in gs["shapes"].items():
-                    name = str(dtype).replace("torch.", "")
-                    status.metrics[f"op.GroupedSums.shape.{n}x{k}x{ncols}.{name}"] = float(calls)
+                # set, not added: the task's record holds every call its
+                # engine made
+                from ballista_tpu_torch.ops import grouped_sums as GS
+
+                status.metrics.update(GS.record_metrics(_grouped_sums_record(gs0)))
             if cache_stats0 is not None:
                 # warmed-key activity while this task ran (best-effort: the
                 # record is process-wide, concurrent tasks interleave)

@@ -11,6 +11,11 @@ processes align on one timeline); durations are measured with
 ``time.perf_counter`` so short spans don't collapse to zero under coarse
 wall clocks.
 
+``Phase`` puts a phase of the program's work on ``torch.profiler``'s
+timeline as a ``ballista.*`` range while a profiler records (and opens
+nothing otherwise), adds its time and count to a counter, and records its
+span dict where the call site has one.
+
 Reference analog: per-operator ``MetricsSet`` harvested per task
 (datafusion ``collect_plan_metrics`` via ballista's execution_graph), and
 the ``trace_id``/``span_id``/parent propagation shape of
@@ -347,6 +352,93 @@ def clear_ambient() -> None:
 
 def ambient() -> Optional[TraceCtx]:
     return getattr(_tls, "ctx", None)
+
+
+
+# ---- phases: the program's work on the profiler's clock ---------------------------
+# torch.autograd.profiler, found once torch is loaded (this module imports no
+# torch: the scheduler and the client's remote path use it without one)
+_autograd_profiler = None
+
+
+def profiling() -> bool:
+    """Whether ``torch.profiler`` is recording in this process: one flag
+    read (False while torch is not loaded)."""
+    global _autograd_profiler
+    prof = _autograd_profiler
+    if prof is None:
+        import sys
+
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is None:
+            return False
+        _autograd_profiler = prof
+    return bool(getattr(prof, "_is_profiler_enabled", False))
+
+
+class Phase:
+    """One phase of the program's work, timed from its start:
+
+    * with ``counter``, its elapsed time and a count are added through
+      ``add(key, value)`` under ``<counter>.time_s`` and ``<counter>.count``;
+    * while ``torch.profiler`` records, it is the range ``name`` (a
+      ``ballista.`` name) on the profiler's timeline, opened when the work
+      starts; otherwise no range is opened, so the phase costs a flag read
+      and its counter;
+    * with ``trace`` (a ``TraceCtx``), it records the engine's span dict
+      ``span`` (service ``engine``) with ``attrs``, which the work may fill
+      in, over the phase's interval.
+
+    A phase whose work raises closes its range and records nothing.
+    ``stop()`` ends the timing early and returns the elapsed seconds, for
+    attributes that hold them."""
+
+    __slots__ = ("name", "counter", "add", "trace", "span", "attrs", "_t0", "_wall0", "_dt",
+                 "_range")
+
+    def __init__(self, name: str, counter: Optional[str] = None, add=None,
+                 trace: Optional["TraceCtx"] = None, span: Optional[str] = None):
+        self.name = name
+        self.counter = counter
+        self.add = add
+        self.trace = trace if span else None
+        self.span = span
+        self.attrs: dict = {}
+        self._range = None
+
+    def __enter__(self) -> "Phase":
+        if profiling():
+            from torch.profiler import record_function
+
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        self._wall0 = time.time() if self.trace is not None else 0.0
+        self._dt = None
+        self._t0 = time.perf_counter()
+        return self
+
+    def stop(self) -> float:
+        if self._dt is None:
+            self._dt = time.perf_counter() - self._t0
+        return self._dt
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        dt = self.stop()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        if exc_type is not None:
+            return False
+        if self.counter is not None:
+            self.add(self.counter + ".time_s", dt)
+            self.add(self.counter + ".count", 1.0)
+        if self.trace is not None:
+            ctx = self.trace
+            ctx.collector.record(
+                self.span, trace_id=ctx.trace_id, parent_id=ctx.parent_id, service="engine",
+                start_us=self._wall0 * 1e6, dur_us=dt * 1e6, attrs=self.attrs,
+            )
+        return False
 
 
 @contextmanager

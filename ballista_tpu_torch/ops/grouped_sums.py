@@ -49,17 +49,20 @@ launches = 0
 _launches_lock = threading.Lock()
 # the launches of warm runs, apart from ``launches``
 warm_launches = 0
-# each thread's record of its calls, the launches they took and its calls
-# by shape (an executor reports a task's share; a mesh program adds its
-# shard threads' records to its caller's)
+# each thread's record of its calls, the launches they took, their least
+# bytes and its calls by shape (an executor reports a task's share, an
+# engine an execution's; a mesh program adds its shard threads' records to
+# its caller's)
 _thread = threading.local()
 
 
 def thread_record() -> dict:
     """What this thread has called so far, and what was added to it:
-    ``{"calls": n, "launches": n, "shapes": {(rows, k, columns, dtype):
-    calls}}``; ``launches`` and ``shapes`` count the calls on a card only."""
+    ``{"calls": n, "launches": n, "min_bytes": n, "shapes": {(rows, k,
+    columns, dtype): calls}}``; ``launches``, ``min_bytes`` and ``shapes``
+    count the calls on a card only."""
     return {"calls": getattr(_thread, "calls", 0), "launches": getattr(_thread, "launches", 0),
+            "min_bytes": getattr(_thread, "min_bytes", 0),
             "shapes": dict(getattr(_thread, "shapes", {}))}
 
 
@@ -69,6 +72,7 @@ def record_since(before: dict) -> dict:
     shapes = {key: n - before["shapes"].get(key, 0) for key, n in now["shapes"].items()}
     return {"calls": now["calls"] - before["calls"],
             "launches": now["launches"] - before["launches"],
+            "min_bytes": now["min_bytes"] - before["min_bytes"],
             "shapes": {key: n for key, n in shapes.items() if n}}
 
 
@@ -77,10 +81,44 @@ def add_to_thread_record(record: dict) -> None:
     (a mesh program's shards)."""
     _thread.calls = getattr(_thread, "calls", 0) + record["calls"]
     _thread.launches = getattr(_thread, "launches", 0) + record["launches"]
+    _thread.min_bytes = getattr(_thread, "min_bytes", 0) + record["min_bytes"]
     shapes = getattr(_thread, "shapes", {})
     for key, n in record["shapes"].items():
         shapes[key] = shapes.get(key, 0) + n
     _thread.shapes = shapes
+
+
+def record_metrics(record: dict) -> dict:
+    """A record as metrics: ``op.GroupedSums.calls``, ``.launches``,
+    ``.min_bytes`` and the calls of each shape under
+    ``op.GroupedSums.shape.<rows>x<k>x<columns>.<dtype>``."""
+    out = {"op.GroupedSums.calls": float(record["calls"]),
+           "op.GroupedSums.launches": float(record["launches"]),
+           "op.GroupedSums.min_bytes": float(record["min_bytes"])}
+    for (n, k, ncols, dtype), calls in record["shapes"].items():
+        name = str(dtype).replace("torch.", "")
+        out[f"op.GroupedSums.shape.{n}x{k}x{ncols}.{name}"] = float(calls)
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def min_bytes(vals: Sequence[Optional[torch.Tensor]], masks: Sequence[torch.Tensor],
+              ids: torch.Tensor, k: int) -> int:
+    """The least bytes one call moves, whatever the kernel reads again: its
+    ids, each distinct mask and each distinct value column read once, and its
+    ``[C, k]`` output written once (4-byte sums where a column is 4 bytes
+    wide, else 8). The roofline of a call is these bytes at the card's
+    memory bandwidth."""
+    seen, total = set(), _nbytes(ids)
+    for t in list(masks) + [v for v in vals if v is not None]:
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += _nbytes(t)
+    out_item = 4 if any(v is not None and v.element_size() == 4 for v in vals) else 8
+    return total + len(vals) * k * out_item
 
 
 
@@ -247,6 +285,7 @@ def grouped_sums_multi(vals: Sequence[Optional[torch.Tensor]], masks: Sequence[t
 
     if not warm:
         _thread.calls = getattr(_thread, "calls", 0) + 1
+        _thread.min_bytes = getattr(_thread, "min_bytes", 0) + min_bytes(vals, masks, ids, k)
         shapes = getattr(_thread, "shapes", {})
         key = (int(n), int(k), len(vals), dtype)
         shapes[key] = shapes.get(key, 0) + 1

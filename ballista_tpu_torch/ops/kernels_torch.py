@@ -30,6 +30,7 @@ the only host syncs are the ones ``to_host`` needs to size its fetch.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -303,16 +304,17 @@ def host_to_device(arr: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def fetch_to_host(tensors: list) -> list:
+def fetch_to_host(tensors: list, wait=contextlib.nullcontext) -> list:
     """Device tensors to numpy arrays in one batch: every copy is issued
-    non-blocking and the stream is synchronized once."""
+    non-blocking and the stream is synchronized once, inside ``wait()``."""
     if not tensors:
         return []
     dev = tensors[0].device
     if dev.type == "cpu":
         return [t.numpy() for t in tensors]
     host = [t.to("cpu", non_blocking=True) for t in tensors]
-    torch.cuda.current_stream(dev).synchronize()
+    with wait():
+        torch.cuda.current_stream(dev).synchronize()
     return [h.numpy() for h in host]
 
 
@@ -327,7 +329,10 @@ def to_device(batch: ColumnBatch, device) -> DeviceBatch:
 _COMPACT_FETCH_BYTES = 4 * 1024 * 1024
 
 
-def to_host(db: DeviceBatch) -> ColumnBatch:
+def to_host(db: DeviceBatch, wait=contextlib.nullcontext) -> ColumnBatch:
+    """The batch on the host. Each wait of the host on the device (the
+    valid-row count of a compacted fetch, the fetch's synchronize) runs
+    inside ``wait()``."""
     # one batched fetch, never per-array round trips; for wide padded
     # outputs, compact to the valid rows on the device first — a sparse
     # aggregate output can be n_pad slots with a handful valid
@@ -335,14 +340,15 @@ def to_host(db: DeviceBatch) -> ColumnBatch:
     payload = sum(a.numel() * a.element_size() for a in arrays)
     if payload > _COMPACT_FETCH_BYTES and db.n_pad:
         # host sync: nonzero sizes its output from the device count
-        idx = torch.nonzero(db.row_valid).squeeze(1)
+        with wait():
+            idx = torch.nonzero(db.row_valid).squeeze(1)
         if idx.shape[0] < db.n_pad:
             fetch = []
             for c in db.cols:
                 fetch.append(c.data[idx])
                 if c.null is not None:
                     fetch.append(c.null[idx])
-            fetched = iter(fetch_to_host(fetch))
+            fetched = iter(fetch_to_host(fetch, wait))
             cols = []
             for f, c in zip(db.schema, db.cols):
                 data = next(fetched)
@@ -355,7 +361,7 @@ def to_host(db: DeviceBatch) -> ColumnBatch:
         fetch.append(c.data)
         if c.null is not None:
             fetch.append(c.null)
-    fetched = iter(fetch_to_host(fetch))
+    fetched = iter(fetch_to_host(fetch, wait))
     valid = next(fetched)
     cols = []
     for f, c in zip(db.schema, db.cols):
