@@ -17,10 +17,14 @@ The shards' outputs concatenate in shard order, as the JAX program's
 ``P(axis)`` outputs do.
 
 The fused input (everything below the partial aggregate, or below each side
-of the join) is materialized, concatenated and encoded on the host once,
-padded to equal power-of-two shards, and its encoding and each shard's
-device copy (on that shard's device) are cached under a content key: a warm
-query reads its input from the devices and runs one program. The JAX
+of the join) is materialized once and padded to equal power-of-two shards.
+Where its partitions ran as device stages, their outputs stay on the device
+and are compacted and concatenated there, with the encoding's metadata the
+host build would give (``KT.encode_device_batches``); otherwise they are
+concatenated and encoded on the host and copied to the shards' devices. Its
+encoding and each shard's device tensors (on that shard's device) are cached
+under a content key: a warm query reads its input from the devices and runs
+one program. The JAX
 package's compile cache and compile-service path have no counterpart (eager
 PyTorch compiles nothing).
 
@@ -92,33 +96,111 @@ def _build_sharded_input(engine, child: P.PhysicalPlan, n_dev: int) -> KT.Encode
     the engine's own stages, or on host kernels with
     ``ballista.tpu.fused_input_on_host``. Raises _EmptyInput for zero rows or
     past ``ballista.tpu.fuse_input_max_rows`` (checked before the concat)."""
+    with engine._phase("ballista.fused.input"):
+        return _host_build(engine, _run_partitions(engine, child, None), n_dev)
+
+
+def _build_input(engine, child: P.PhysicalPlan, mesh: list) -> tuple:
+    """(encoding, each shard's device tensors or None) of the fused input.
+    Where every partition came back from a device stage, the input is built
+    from the stages' outputs on the device (``KT.encode_device_batches``:
+    the encoding the host build would give, its arrays storage-free
+    stand-ins) and nothing is fetched; otherwise, or where a column's
+    encoding only the host can make, the host build (shards None). Counted
+    in ``op.FusedInput.device_builds`` or ``op.FusedInput.host_builds``."""
+    with engine._phase("ballista.fused.input"):
+        spans: list = []
+        parts = _run_partitions(engine, child, spans)
+        if parts and all(isinstance(p, KT.DeviceBatch) for p in parts):
+            cap = int(engine.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
+            with engine._phase("ballista.fused.device_build"):
+                got = KT.encode_device_batches(parts, len(mesh), engine._wait, cap)
+            if got is not None:
+                counts, enc, arrays = got
+                for span, rows in zip(spans, counts):
+                    if span is not None:
+                        span["attrs"]["rows"] = rows
+                if enc is None:
+                    raise _EmptyInput()
+                engine._metric("op.FusedInput.device_builds", 1.0)
+                return enc, [[a.to(dev) for a in shard]
+                             for shard, dev in zip(split_rows(arrays, len(mesh)), mesh)]
+        spans = iter(spans)
+        batches = []
+        for p in parts:
+            if isinstance(p, KT.DeviceBatch):
+                p = engine._fetch(p)
+                span = next(spans)
+                if span is not None:
+                    span["attrs"]["rows"] = p.num_rows
+            batches.append(p)
+        return _host_build(engine, batches, len(mesh)), None
+
+
+def _run_partitions(engine, child: P.PhysicalPlan, unfetched: Optional[list]) -> list:
+    """Each partition of the fused input, through the engine's stages (with
+    ``unfetched``, a device stage's output left on the device: see
+    ``TorchEngine._exec``), or on host kernels with
+    ``ballista.tpu.fused_input_on_host``. Raises _EmptyInput past
+    ``ballista.tpu.fuse_input_max_rows`` host rows."""
     on_host = bool(engine.config.get(BALLISTA_TPU_FUSED_INPUT_ON_HOST))
     cap = int(engine.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
-    with engine._phase("ballista.fused.input"):
-        if on_host:
-            engine._host_only += 1
-        try:
-            batches = []
-            rows = 0
-            for i in range(child.output_partitions()):
-                b = engine._exec(child, i)
+    if on_host:
+        engine._host_only += 1
+    try:
+        parts = []
+        rows = 0
+        for i in range(child.output_partitions()):
+            b = engine._exec(child, i, unfetched)
+            if isinstance(b, ColumnBatch):
                 rows += b.num_rows
                 if cap and rows > cap:
                     raise _EmptyInput()
-                batches.append(b)
-        finally:
-            if on_host:
-                engine._host_only -= 1
-        big = ColumnBatch.concat(batches)
-        if big.num_rows == 0:
-            raise _EmptyInput()
-        return _encode_sharded(engine, big, n_dev)
+            parts.append(b)
+        return parts
+    finally:
+        if on_host:
+            engine._host_only -= 1
+
+
+def _host_build(engine, batches: list, n_dev: int) -> KT.EncodedBatch:
+    """The host build: ``batches`` concatenated and encoded for ``n_dev``
+    shards. Raises _EmptyInput for zero rows or past the row cap."""
+    cap = int(engine.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
+    big = ColumnBatch.concat(batches)
+    if big.num_rows == 0 or (cap and big.num_rows > cap):
+        raise _EmptyInput()
+    engine._metric("op.FusedInput.host_builds", 1.0)
+    return _encode_sharded(engine, big, n_dev)
 
 
 def _encode_sharded(engine, batch: ColumnBatch, n_dev: int) -> KT.EncodedBatch:
     per_dev = KT.bucket_size(max(1, -(-batch.num_rows // n_dev)))
     with engine._phase("ballista.leaf.encode", "op.HostEncode"):
         return KT.encode_host_batch(batch, pad=per_dev * n_dev)
+
+
+def host_sharded_input(engine, child: P.PhysicalPlan, n_dev: int) -> KT.EncodedBatch:
+    """The fused input's host encoding (a megastage's, whose program copies
+    its input itself), read through the encode cache under the key
+    ``_sharded_input`` uses. An entry ``_sharded_input`` built on the device
+    holds no arrays: it is replaced by the host build."""
+    key = _input_content_key(child, n_dev)
+    if key is None:
+        return _build_sharded_input(engine, child, n_dev)
+    def build():
+        return _build_sharded_input(engine, child, n_dev)
+
+    enc = engine._leaf_lookup(TE._ENC_CACHE, ("fused_in", key), build)
+    if _stand_ins(enc):
+        enc = build()
+        TE._ENC_CACHE.put(("fused_in", key), enc)
+    return enc
+
+
+def _stand_ins(enc: KT.EncodedBatch) -> bool:
+    """Whether the encoding was built on the device (its arrays stand-ins)."""
+    return isinstance(enc.arrays[-1], torch.Tensor)
 
 
 def _on_mesh(engine, enc: KT.EncodedBatch, mesh: list, cache_key: Optional[tuple]) -> list:
@@ -133,18 +215,40 @@ def _on_mesh(engine, enc: KT.EncodedBatch, mesh: list, cache_key: Optional[tuple
 def _sharded_input(engine, child: P.PhysicalPlan, mesh: list):
     """(EncodedBatch, each shard's device tensors) of the fused input, read
     through the content-keyed encode and device caches when its key exists,
-    so a warm fused run is device execution only. With
+    so a warm fused run is device execution only. An input built on the
+    device puts its shards into the device cache as they are; a device-cache
+    miss of one is built again, never copied from its stand-ins. With
     ``ballista.tpu.pin_device_cache`` each shard's device copy is pinned
     (never evicted); one pin per input plan and shard, so a table registered
     again releases the copy of its old content."""
     n_dev = len(mesh)
     key = _input_content_key(child, n_dev)
     if key is None:
-        enc = _build_sharded_input(engine, child, n_dev)
-        return enc, _on_mesh(engine, enc, mesh, None)
-    enc = engine._leaf_lookup(TE._ENC_CACHE, ("fused_in", key),
-                              lambda: _build_sharded_input(engine, child, n_dev))
-    shards = _on_mesh(engine, enc, mesh, ("fused_dev", key))
+        enc, shards = _build_input(engine, child, mesh)
+        return enc, shards if shards is not None else _on_mesh(engine, enc, mesh, None)
+    built: list = []  # the shards of a build on the device this call made
+
+    def build():
+        enc, shards = _build_input(engine, child, mesh)
+        if shards is not None:
+            built.append(shards)
+        return enc
+
+    enc = engine._leaf_lookup(TE._ENC_CACHE, ("fused_in", key), build)
+    if _stand_ins(enc):
+        def shard(i):
+            if not built:
+                # a device-cache miss of an input built on the device
+                again = build()
+                if not built:  # built on the host this time
+                    built.append(_on_mesh(engine, again, mesh, None))
+            return built[0][i]
+
+        shards = [engine._leaf_lookup(TE._DEV_CACHE, engine._dev_key(("fused_dev", key, i), dev),
+                                      lambda i=i: shard(i))
+                  for i, dev in enumerate(mesh)]
+    else:
+        shards = _on_mesh(engine, enc, mesh, ("fused_dev", key))
     pin = engine.config.get(BALLISTA_TPU_PIN_DEVICE_CACHE)
     for i, dev in enumerate(mesh):
         dev_key = engine._dev_key(("fused_dev", key, i), dev)

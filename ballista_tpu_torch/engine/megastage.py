@@ -79,13 +79,7 @@ def run_megastage(engine, ms: P.MegastageExec, n_dev: int) -> Optional[list[Colu
     lrep = join_plan.left
     # inputs: the host encodings are cached, the device copies never are
     try:
-        lkey = FX._input_content_key(lrep.input, n_dev)
-        if lkey is None:
-            lenc = FX._build_sharded_input(engine, lrep.input, n_dev)
-        else:
-            lenc = engine._leaf_lookup(
-                TE._ENC_CACHE, ("fused_in", lkey),
-                lambda: FX._build_sharded_input(engine, lrep.input, n_dev))
+        lenc = FX.host_sharded_input(engine, lrep.input, n_dev)
     except FX._EmptyInput:
         return None
     renc = FX.build_side_encoding(engine, join_plan, n_dev)

@@ -139,7 +139,10 @@ log = logging.getLogger("ballista.engine")
 # tensor shares memory with its cached host array, and on CUDA every later
 # query reads it: no stage may write a leaf tensor in place.
 _ENC_CACHE: LoadingCache = LoadingCache(
-    capacity=4 * 1024**3, weigher=lambda enc: sum(a.nbytes for a in enc.arrays)
+    # a fused input built on the device holds storage-free stand-ins
+    # (fused_exchange), weighed as nothing
+    capacity=4 * 1024**3,
+    weigher=lambda enc: sum(a.nbytes for a in enc.arrays if isinstance(a, np.ndarray)),
 )
 _DEV_CACHE: LoadingCache = LoadingCache(
     capacity=8 * 1024**3, weigher=lambda ts: sum(t.numel() * t.element_size() for t in ts)
@@ -270,7 +273,11 @@ class TorchEngine(NumpyEngine):
         return out
 
     # ---- dispatch --------------------------------------------------------------
-    def _exec(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
+    def _exec(self, plan: P.PhysicalPlan, part: int, unfetched: Optional[list] = None):
+        """The partition's output as a host batch. With ``unfetched`` (a
+        list), a device stage at ``plan`` returns its ``DeviceBatch`` instead,
+        not fetched, and appends its ``CompiledStage`` span dict (None
+        untraced) to ``unfetched``: the caller fills in its ``rows``."""
         if isinstance(plan, P.MegastageExec):
             # a promoted whole chain: one mesh program, or a demotion
             return self._run_megastage_node(plan, part)
@@ -294,14 +301,14 @@ class TorchEngine(NumpyEngine):
         if not _supported(plan):
             return super()._exec(plan, part)
         try:
-            return self._timed_stage(plan, part)
+            return self._timed_stage(plan, part, unfetched)
         except _PagedJoinFallback as pf:
             return self._page_and_rerun(plan, pf.node, part)
         except (_HostFallback, KT.DeviceUnsupported):
             pass  # a runtime shape the device path cannot express
         return super()._exec(plan, part)  # host kernels
 
-    def _timed_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
+    def _timed_stage(self, plan: P.PhysicalPlan, part: int, unfetched: Optional[list] = None):
         # a child of the operator that called it, as a host operator is: the
         # caller's exclusive time leaves the stage out
         stack = self._op_stack
@@ -310,12 +317,16 @@ class TorchEngine(NumpyEngine):
         try:
             with ph:
                 hidden_before = self.op_metrics.get("op.CompileHidden.time_s", 0.0)
-                out = self._run_stage(plan, part)
-                # the stage ends in its fetch to the host, which waits for the device
+                if unfetched is None:
+                    out = self._run_stage(plan, part)
+                else:
+                    out = self._stage_on_device(plan, part)
+                # the stage ends in its fetch to the host, which waits for the
+                # device, or (unfetched) in the wait that ends its program
                 elapsed = ph.stop()
                 # the JAX span's attrs; an eager stage compiles nothing
                 attrs = {
-                    "rows": out.num_rows,
+                    "rows": out.num_rows if isinstance(out, ColumnBatch) else None,
                     "partition": part,
                     "compile_ms": 0.0,
                     "execute_ms": round(elapsed * 1000, 3),
@@ -336,6 +347,8 @@ class TorchEngine(NumpyEngine):
             stack.pop()
             if stack:
                 stack[-1][0] += ph.stop()
+        if isinstance(out, KT.DeviceBatch):
+            unfetched.append(ph.recorded)
         return out
 
     def _exec_inner(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
@@ -885,6 +898,13 @@ class TorchEngine(NumpyEngine):
 
     # ---- the stage driver ----------------------------------------------------------
     def _run_stage(self, plan: P.PhysicalPlan, part: int) -> ColumnBatch:
+        out = self._stage_on_device(plan, part)
+        return out if isinstance(out, ColumnBatch) else self._fetch(out)
+
+    def _stage_on_device(self, plan: P.PhysicalPlan, part: int):
+        """The stage's program run to its end: its output as a
+        ``DeviceBatch`` on the device, or a host batch where the stage ran
+        on the host kernels (a tiny stage)."""
         with self._phase("ballista.stage.leaves"):
             leaves = self._collect_leaves(plan, part)
         # this stage's CompiledStage attrs, reset so a host path taken below
@@ -957,8 +977,7 @@ class TorchEngine(NumpyEngine):
                     self._metric_max("op.HbmPeak.max_bytes", self._last_hbm_peak)
         self._metric("op.DeviceExecute.rows", in_rows)
 
-        out_db = KT.device_batch_from_outputs(holder["meta"], list(out), 0)
-        return self._fetch(out_db)
+        return KT.device_batch_from_outputs(holder["meta"], list(out), 0)
 
     def _precompile_enabled(self) -> bool:
         return bool(self.config.get(BALLISTA_ENGINE_PRECOMPILE))

@@ -387,14 +387,15 @@ class Phase:
       and its counter;
     * with ``trace`` (a ``TraceCtx``), it records the engine's span dict
       ``span`` (service ``engine``) with ``attrs``, which the work may fill
-      in, over the phase's interval.
+      in, over the phase's interval; ``recorded`` is that dict once the
+      phase has closed (None untraced).
 
     A phase whose work raises closes its range and records nothing.
     ``stop()`` ends the timing early and returns the elapsed seconds, for
     attributes that hold them."""
 
-    __slots__ = ("name", "counter", "add", "trace", "span", "attrs", "_t0", "_wall0", "_dt",
-                 "_range")
+    __slots__ = ("name", "counter", "add", "trace", "span", "attrs", "recorded", "_t0", "_wall0",
+                 "_dt", "_range")
 
     def __init__(self, name: str, counter: Optional[str] = None, add=None,
                  trace: Optional["TraceCtx"] = None, span: Optional[str] = None):
@@ -404,6 +405,7 @@ class Phase:
         self.trace = trace if span else None
         self.span = span
         self.attrs: dict = {}
+        self.recorded: Optional[dict] = None
         self._range = None
 
     def __enter__(self) -> "Phase":
@@ -434,7 +436,7 @@ class Phase:
             self.add(self.counter + ".count", 1.0)
         if self.trace is not None:
             ctx = self.trace
-            ctx.collector.record(
+            self.recorded = ctx.collector.record(
                 self.span, trace_id=ctx.trace_id, parent_id=ctx.parent_id, service="engine",
                 start_us=self._wall0 * 1e6, dur_us=dt * 1e6, attrs=self.attrs,
             )

@@ -580,6 +580,192 @@ def encoded_from_reference(arrays, col_meta, n_rows: int, **attrs) -> EncodedBat
     return EncodedBatch(schema, n_rows, len(arrays[-1]), arrays, meta, **attrs)
 
 
+def encode_device_batches(parts: list, n_dev: int, wait=contextlib.nullcontext,
+                          max_rows: int = 0):
+    """What ``encode_host_batch`` gives for ``parts`` (stage outputs on one
+    device) fetched to the host and concatenated, padded to ``n_dev`` equal
+    power-of-two shards, made on the device: the valid rows compacted in
+    part order, each decimal at the least scale holding all its values
+    exactly (the host's ``sniff_decimal``), integer ranges and subset-sum
+    bounds from exact reductions, shared-dictionary codes kept. Every
+    statistic and each part's row count come back in one wait (``wait()``).
+
+    Returns (row counts, EncodedBatch, its arrays on the device); the
+    encoding's own arrays are storage-free ``meta`` stand-ins. Both are None
+    for zero rows, or past ``max_rows`` when it is set. Returns None where
+    the host's encoding could differ: a float column not held as a scaled
+    decimal or that needs a scale past MAX_DECIMAL_SCALE, a scaled value (at
+    any part's scale) at or past 2^51 or a subset sum at or past 2^53 (below
+    them the host's scale search and float sum are exact), a string column
+    without a registered shared dictionary or with NULLs."""
+    from ballista_tpu_torch.engine.dictionaries import REGISTRY
+
+    schema = parts[0].schema
+    kinds = [_device_encode_kind(f.dtype, [p.cols[i] for p in parts], REGISTRY)
+             for i, f in enumerate(schema)]
+    if None in kinds:
+        return None
+    if sum(p.n_pad for p in parts) == 0:
+        return [0] * len(parts), None, None
+    # the parts' rows after one invalid row; cum[j]: the valid rows of the
+    # first j rows of the parts
+    flags = torch.cat([torch.zeros(1, dtype=torch.bool, device=parts[0].device)]
+                      + [p.row_valid for p in parts])
+    cum = torch.cumsum(flags, 0)
+    rv = flags[1:]
+    # the statistics, stacked for the one wait: int64 scalars in ``ints``
+    # (first the valid rows up to each part's end), the decimals' float64
+    # sums of |value| in ``sums``
+    ints = [cum[int(e)] for e in np.cumsum([p.n_pad for p in parts])]
+    sums: list = []
+    cols = []
+    for i, (f, kind) in enumerate(zip(schema, kinds)):
+        pcols = [p.cols[i] for p in parts]
+        col = {"kind": kind, "null": None, "dictionary": pcols[0].dictionary,
+               "dict_id": pcols[0].dict_id, "scale": None}
+        if kind == "dec":
+            # every part at the largest scale: a part at a lower one is
+            # multiplied up, its exact range checked after the wait
+            col["scale"] = max(c.scale for c in pcols)
+            col["raised"] = []
+            data = []
+            for c, p in zip(pcols, parts):
+                d = col["scale"] - c.scale
+                if d:
+                    part_live = p.row_valid if c.null is None else p.row_valid & ~c.null
+                    col["raised"].append((d, len(ints)))
+                    ints += [torch.where(part_live, c.data, _I64_MAX).min(),
+                             torch.where(part_live, c.data, _I64_MIN).max()]
+                data.append(c.data * 10**d if d else c.data)
+            col["data"] = torch.cat(data)
+        else:
+            want = torch.int32 if kind == "str" else tdtype(f.dtype.to_numpy())
+            col["data"] = torch.cat([c.data.to(want) for c in pcols])
+        live = rv
+        if any(c.null is not None for c in pcols):
+            col["null"] = torch.cat([c.null if c.null is not None
+                                     else torch.zeros_like(p.row_valid)
+                                     for c, p in zip(pcols, parts)])
+            col["null_at"] = len(ints)
+            ints.append((rv & col["null"]).any())
+            live = rv & ~col["null"]
+        if kind != "str":
+            x = col["data"].to(torch.int64)
+            col["lo_at"] = len(ints)
+            ints += [torch.where(live, x, _I64_MAX).min(), torch.where(live, x, _I64_MIN).max()]
+        if kind == "dec":
+            col["sum_at"] = len(sums)
+            sums.append(torch.where(live, x.abs(), 0).to(torch.float64).sum())
+            # flags: some value is not a multiple of 10^j, j = 1..scale
+            col["nd_at"] = len(ints)
+            ints += [(live & (torch.remainder(x, 10**j) != 0)).any()
+                     for j in range(1, col["scale"] + 1)]
+        cols.append(col)
+    stacked = [torch.stack([t.to(torch.int64) for t in ints])]
+    if sums:
+        stacked.append(torch.stack(sums))
+    got = fetch_to_host(stacked, wait)
+    got_i = [int(v) for v in got[0]]
+    got_s = [float(v) for v in got[1]] if sums else []
+    counts = np.diff(got_i[:len(parts)], prepend=0).tolist()
+    n = got_i[len(parts) - 1]
+    if n == 0 or (max_rows and n > max_rows):
+        return counts, None, None
+
+    per_dev = bucket_size(max(1, -(-n // n_dev)))
+    pad = per_dev * n_dev
+    # each valid row's slot in the output; every other row lands on slot pad
+    dest = torch.where(rv, cum[1:] - 1, pad)
+
+    def compact(x: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(pad + 1, dtype=x.dtype, device=x.device)
+        return out.index_copy_(0, dest, x)[:pad]
+
+    arrays: list = []
+    col_meta, int_ranges, ssums, dict_ids = [], [], [], []
+    for f, col in zip(schema, cols):
+        has_null = "null_at" in col and got_i[col["null_at"]] != 0
+        data = col["data"]
+        rng = ssum = scale = None
+        dictionary = did = None
+        if col["kind"] == "str":
+            if has_null:
+                return None  # the host codes a NULL as "", perhaps outside the dictionary
+            dictionary, did = np.asarray(col["dictionary"], dtype=object), col["dict_id"]
+        else:
+            lo, hi = got_i[col["lo_at"]], got_i[col["lo_at"] + 1]
+            if lo > hi:  # no valid non-null value
+                lo = hi = 0
+            if col["kind"] == "int":
+                rng = bucket_range(lo, hi)
+            else:
+                nd = got_i[col["nd_at"]:col["nd_at"] + col["scale"]]
+                k = nd.index(1) if 1 in nd else col["scale"]
+                scale = col["scale"] - k
+                if (scale > MAX_DECIMAL_SCALE or not -_EXACT_SCALED < lo <= hi < _EXACT_SCALED
+                        or got_s[col["sum_at"]] >= _EXACT_F64
+                        or not all(_raised_exactly(got_i[at], got_i[at + 1], d)
+                                   for d, at in col["raised"])):
+                    return None
+                div = 10**k
+                if k:
+                    data = _fdiv(data, div)
+                if col["null"] is not None:
+                    data = torch.where(col["null"], 0, data)
+                rng = bucket_range(lo // div, hi // div)
+                ssum = _pow2_at_least(_sum_margin(float(int(got_s[col["sum_at"]]) // div)))
+        arrays.append(compact(data))
+        if has_null:
+            arrays.append(compact(col["null"]))
+        col_meta.append((f.dtype, has_null, dictionary, scale))
+        int_ranges.append(rng)
+        ssums.append(ssum)
+        dict_ids.append(did)
+    arrays.append(torch.arange(pad, device=rv.device) < n)
+    stand_ins = [torch.empty(a.shape, dtype=a.dtype, device="meta") for a in arrays]
+    enc = EncodedBatch(schema, n, pad, stand_ins, col_meta, int_ranges, ssums,
+                       dict_ids if any(dict_ids) else None)
+    return counts, enc, arrays
+
+
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
+# scaled values below this round-trip the host's descale and scale search
+# exactly (two bits of margin under float64's 2^53)
+_EXACT_SCALED = 1 << 51
+# integer sums below this are exact in float64, in any order of addition
+_EXACT_F64 = float(1 << 53)
+
+
+def _raised_exactly(lo: int, hi: int, d: int) -> bool:
+    """Whether a part's scaled values in [lo, hi] (lo > hi: none), times
+    10^d, stay below _EXACT_SCALED in magnitude: the multiply wrapped none."""
+    return lo > hi or -_EXACT_SCALED < lo * 10**d <= hi * 10**d < _EXACT_SCALED
+
+
+def _device_encode_kind(dtype: DataType, cols: list, registry) -> Optional[str]:
+    """How ``encode_device_batches`` encodes a column given as ``cols`` (one
+    per part): "str" (codes of a registered shared dictionary), "int", "dec"
+    (a scaled decimal), or None where it cannot match the host."""
+    c0 = cols[0]
+    if dtype is DataType.STRING:
+        shared = registry.get(c0.dict_id)
+        if shared is not None and all(
+                c.dict_id == c0.dict_id
+                and (c.dictionary is shared or np.array_equal(c.dictionary, shared))
+                for c in cols):
+            return "str"
+        return None
+    if any(c.is_string for c in cols):
+        return None
+    if (dtype in (DataType.INT32, DataType.INT64, DataType.DATE32, DataType.BOOL)
+            and all(c.scale is None for c in cols)):
+        return "int"
+    if (dtype is DataType.FLOAT64 and NATIVE_DTYPES
+            and all(c.scale is not None and 10**c.scale <= _I64_MAX for c in cols)):
+        return "dec"
+    return None
+
+
 def _pow2_at_least(v: int) -> int:
     """Round a content-derived bound up to a power of two."""
     return 1 << max(0, int(v).bit_length())
@@ -589,7 +775,10 @@ def abs_sum_bound(scaled: np.ndarray) -> int:
     """Sound UPPER bound on sum(|scaled|): float64 pairwise summation of
     <2^53 elements has ~1e-13 relative error, so a 0.1% upward margin is
     safely conservative (an int64 sum could wrap)."""
-    s = float(np.abs(scaled.astype(np.float64)).sum())
+    return _sum_margin(float(np.abs(scaled.astype(np.float64)).sum()))
+
+
+def _sum_margin(s: float) -> int:
     return int(s * 1.001) + 1
 
 

@@ -14,6 +14,10 @@ dispatch, against the JAX package, on the CPU.
   fused input, and transfers under 1% of its cold bytes.
 * Tiny-stage dispatch: all 22 queries with ``min_device_rows`` far above
   SF 0.01, against the oracle and the JAX engine's host operators.
+* A cold fused input built on the device from its stages' outputs: the
+  host build's encoding, metadata and every element, for TPC-H's inputs
+  and synthetic stage outputs; the inputs only the host can encode take the
+  host build; each build counted; a device-cache miss builds it again.
 """
 import os
 import threading
@@ -36,11 +40,13 @@ from ballista_tpu.parallel import shard_map
 from ballista_tpu.parallel.mesh import build_mesh
 from ballista_tpu_torch.client.context import BallistaContext
 from ballista_tpu_torch.config import BallistaConfig
+from ballista_tpu_torch.engine import fused_exchange as FX
 from ballista_tpu_torch.engine import torch_engine as TE
 from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.ops import grouped_sums as GS
 from ballista_tpu_torch.ops import kernels_torch as KT
 from ballista_tpu_torch.parallel.ici import make_hash_exchange
+from ballista_tpu_torch.parallel.mesh import build_mesh as port_mesh
 from ballista_tpu_torch.plan import physical as P
 
 from test_torch_data import torch_oracle_tables, torch_tpch_dir  # noqa: F401
@@ -306,7 +312,8 @@ def test_unfused_q22_aggregates_on_the_host_as_the_jax_engine_does(torch_tpch_di
 
 
 # ---- the leaf caches ---------------------------------------------------------------------
-def _final_agg_schema(ctx, qname):
+def _final_aggs(ctx, qname):
+    """The final aggregates of ``qname``'s physical plan."""
     from ballista_tpu_torch.plan.optimizer import optimize
     from ballista_tpu_torch.plan.physical_planner import PhysicalPlanner
     from ballista_tpu_torch.sql.parser import parse_sql
@@ -314,8 +321,12 @@ def _final_agg_schema(ctx, qname):
 
     plan = SqlPlanner(ctx.catalog.schemas()).plan(parse_sql(_sql(qname)))
     phys = PhysicalPlanner(ctx.catalog, ctx.config).plan(optimize(plan, ctx.catalog))
-    finals = [n for n in P.walk_physical(phys)
-              if isinstance(n, P.HashAggregateExec) and n.mode == "final"]
+    return [n for n in P.walk_physical(phys)
+            if isinstance(n, P.HashAggregateExec) and n.mode == "final"]
+
+
+def _final_agg_schema(ctx, qname):
+    finals = _final_aggs(ctx, qname)
     assert len(finals) == 1
     return tuple(finals[0].schema().names)
 
@@ -351,6 +362,215 @@ def test_warm_run_encodes_no_input_again(ctxs, monkeypatch, qname):
     assert stages[1] == 1 + 16 and stages[0] == stages[2] > stages[1]
     assert any(s != final for s in cold) and sorted(cleared) == sorted(cold)
     assert sent[1] < 0.01 * sent[0] and sent[2] == sent[0]
+
+
+# ---- the fused input built on the device ------------------------------------------------------
+def _fused_input(ctx, qname):
+    """The fused input of ``qname``'s final aggregate: its partial
+    aggregate's input, below the exchange."""
+    (final,) = _final_aggs(ctx, qname)
+    assert isinstance(final.input, P.RepartitionExec)
+    return final.input.input.input
+
+
+@pytest.mark.parametrize("n_dev", [1, 4])
+@pytest.mark.parametrize("qname", ["q1", "q3", "q5", "q12"])
+def test_device_built_input_equals_the_host_build(ctxs, qname, n_dev):
+    """Built on the device from its stages' outputs, the fused input has
+    the host build's encoding: rows, pad, each column's dtype, null flag,
+    dictionary and scale, ranges, subset-sum bounds and shared dictionary
+    ids, and every array equal element for element (its shards
+    concatenated), so the fused program makes the same decisions."""
+    tctx, _ = ctxs[500_000]
+    child = _fused_input(tctx, qname)
+    want = FX._build_sharded_input(TE.TorchEngine(tctx.config, device="cpu"), child, n_dev)
+    engine = TE.TorchEngine(tctx.config, device="cpu")
+    got, shards = FX._build_input(engine, child, port_mesh(n_dev, "cpu"))
+    assert shards is not None and len(shards) == n_dev
+    assert engine.op_metrics["op.FusedInput.device_builds"] == 1.0
+    assert "op.FusedInput.host_builds" not in engine.op_metrics
+    assert (got.n_rows, got.n_pad) == (want.n_rows, want.n_pad)
+    assert len(got.col_meta) == len(want.col_meta)
+    for (gdt, gnull, gdict, gscale), (wdt, wnull, wdict, wscale) in zip(got.col_meta,
+                                                                        want.col_meta):
+        assert (gdt, gnull, gscale) == (wdt, wnull, wscale)
+        assert (gdict is None) == (wdict is None)
+        assert gdict is None or np.array_equal(gdict, wdict)
+    assert got.int_ranges == want.int_ranges
+    assert got.ssums == want.ssums
+    assert got.dict_ids == want.dict_ids
+    assert all(a.device.type == "meta" for a in got.arrays)
+    arrays = [torch.cat([s[j] for s in shards]).numpy() for j in range(len(shards[0]))]
+    assert len(arrays) == len(want.arrays)
+    for g, w in zip(arrays, want.arrays):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+_WORDS = np.array(["AIR", "MAIL", "RAIL", "SHIP", "TRUCK"], dtype=object)
+_WORDS_ID = "test.words@v1:fused-input"
+
+
+def _stage_outputs(seed: int, shared: bool = True, nulls: bool = False, big: bool = False,
+                   floats: bool = False, raised: bool = False) -> list:
+    """Four stage outputs on the CPU device, as a fused input's partitions
+    come back: ints with NULLs, dates, bools, a decimal at scales 2, 0 (an
+    empty part), 0 and 1 (``raised``: each two higher, as a product's
+    output holds more digits than its values need), and strings of a shared
+    dictionary; about a fifth of each part's rows invalid, not as a
+    suffix."""
+    from ballista_tpu_torch.engine.dictionaries import REGISTRY
+    from ballista_tpu_torch.ops.batch import Column, ColumnBatch
+    from ballista_tpu_torch.plan.schema import DataType, Field, Schema
+
+    REGISTRY.ensure(_WORDS_ID, _WORDS)
+    rng = np.random.default_rng(seed)
+    schema = Schema((Field("i", DataType.INT32), Field("d", DataType.DATE32),
+                     Field("b", DataType.BOOL), Field("x", DataType.FLOAT64),
+                     Field("s", DataType.STRING)))
+    parts = []
+    for n, scale in ((40, 2), (0, 0), (25, 0), (30, 1)):
+        x = rng.integers(-10**5, 10**5, n) / 10.0**scale
+        if big:
+            x = x + 2.0**52
+        if floats:
+            x = x + 1 / 3
+        words = [None if nulls and rng.random() < 0.2 else str(w)
+                 for w in rng.choice(_WORDS, n)]
+        batch = ColumnBatch(schema, [
+            Column(DataType.INT32, rng.integers(-1000, 1000, n).astype(np.int32),
+                   rng.random(n) < 0.8),
+            Column(DataType.DATE32, rng.integers(8000, 11000, n).astype(np.int32)),
+            Column(DataType.BOOL, rng.random(n) < 0.5),
+            Column(DataType.FLOAT64, x, rng.random(n) < 0.9),
+            Column(DataType.STRING, pa.array(words, pa.string()),
+                   dict_id=_WORDS_ID if shared else None),
+        ])
+        db = KT.to_device(batch, "cpu")
+        db.row_valid = db.row_valid & torch.from_numpy(rng.random(db.n_pad) < 0.8)
+        if raised:
+            db.cols[3] = KT.rescale_up(db.cols[3], db.cols[3].scale + 2)
+        parts.append(db)
+    return parts
+
+
+@pytest.mark.parametrize("n_dev", [1, 4])
+@pytest.mark.parametrize("seed,raised", [(0, False), (1, True), (2, False), (3, True)])
+def test_encode_device_batches_is_the_host_encode(seed, raised, n_dev):
+    """Stage outputs encoded on the device give what the host encode of
+    their fetched concatenation gives: a decimal whose parts differ in
+    scale at the least exact scale (lowered where every value has spare
+    digits), NULLs kept where the host keeps them, shared codes, ranges and
+    subset-sum bounds; each part's valid rows in the counts."""
+    parts = _stage_outputs(seed, raised=raised)
+    if raised:
+        assert [p.cols[3].scale for p in parts] == [4, 2, 2, 3]
+    counts, got, arrays = KT.encode_device_batches(parts, n_dev)
+    host = [KT.to_host(p) for p in parts]
+    n = sum(b.num_rows for b in host)
+    assert counts == [b.num_rows for b in host]
+    from ballista_tpu_torch.ops.batch import ColumnBatch
+
+    want = KT.encode_host_batch(ColumnBatch.concat(host),
+                                pad=KT.bucket_size(-(-n // n_dev)) * n_dev)
+    assert (got.n_rows, got.n_pad) == (want.n_rows, want.n_pad)
+    for g, w in zip(got.col_meta, want.col_meta):
+        assert g[0] == w[0] and g[1] == w[1] and g[3] == w[3]
+        assert (g[2] is None and w[2] is None) or np.array_equal(g[2], w[2])
+    assert want.col_meta[3][3] == 2  # the decimal's least exact scale over all parts
+    assert got.int_ranges == want.int_ranges and got.ssums == want.ssums
+    assert got.dict_ids == want.dict_ids == [None, None, None, None, _WORDS_ID]
+    assert len(arrays) == len(want.arrays) == len(got.arrays)
+    for g, w in zip(arrays, want.arrays):
+        assert g.dtype == torch.from_numpy(w).dtype and np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("case", ["no-shared-dictionary", "string-nulls", "past-2^51",
+                                  "raised-past-2^51", "float"])
+def test_encode_device_batches_declines_what_only_the_host_encodes(case):
+    """A string column without a shared dictionary or with NULLs, a scaled
+    value past 2^51 (also one that passes it only when raised to another
+    part's scale, where the int64 multiply wraps to a small value) and a
+    float that is no decimal: the host's encoding could differ, so the
+    device encode returns None."""
+    parts = _stage_outputs(7, shared=case != "no-shared-dictionary",
+                           nulls=case == "string-nulls", big=case == "past-2^51",
+                           floats=case == "float")
+    if case == "raised-past-2^51":
+        parts[0].cols[3] = KT.rescale_up(parts[0].cols[3], 8)
+        # times 10^8 this is 2^64 - 9551616: it wraps to -9551616
+        parts[2].cols[3].data[:] = 184467440737
+        assert parts[2].cols[3].scale == 0
+    assert KT.encode_device_batches(parts, 1) is None
+
+
+@pytest.mark.parametrize("route,settings", [
+    ("device", {}),
+    ("host", {"ballista.engine.shared_dicts": "false"}),
+    ("host", {"ballista.tpu.fused_input_on_host": "true"}),
+    ("host", {"ballista.tpu.min_device_rows": "10000000"}),
+], ids=["default", "no-shared-dictionary", "fused-input-on-host", "tiny-stages"])
+def test_fused_input_build_route_is_counted(torch_tpch_dir, torch_oracle_tables, route,
+                                            settings):
+    """q1's fused input is built on the device by default. Its string
+    columns without a shared dictionary, ``fused_input_on_host``, and its
+    partitions taken by tiny host stages each give the host build. Either
+    build counts in its counter, the answer is the oracle's, and each
+    stage's span holds its rows (the stages below a device build report
+    the rows its one wait counted)."""
+    ctx = BallistaContext.standalone(BallistaConfig(settings), device="cpu")
+    ctx.register_parquet("lineitem", os.path.join(torch_tpch_dir, "lineitem"))
+    TE.clear_caches()
+    got = ctx.sql(_sql("q1")).collect().to_pandas()
+    assert_frames_match(got, ORACLES["q1"](torch_oracle_tables), True, "q1")
+    m = ctx.last_engine_metrics
+    other = "host" if route == "device" else "device"
+    assert m.get(f"op.FusedInput.{route}_builds") == 1.0
+    assert f"op.FusedInput.{other}_builds" not in m
+    spans = ctx.last_trace_spans
+    stages = [s for s in spans if s["name"] == "CompiledStage"]
+    assert all(isinstance(s["attrs"]["rows"], int) for s in stages)
+    if route == "device":
+        fused = [i for i, s in enumerate(spans)
+                 if s["name"] == "DeviceExecute" and s["attrs"]["program"] == "fused"]
+        below = [s["attrs"]["rows"] for s in spans[:fused[0]] if s["name"] == "CompiledStage"]
+        assert len(below) == 2 and sum(below) == spans[fused[0]]["attrs"]["rows"]
+
+
+def test_device_cache_eviction_of_a_device_built_input_builds_it_again(ctxs):
+    """A fused input built on the device leaves only stand-ins in the
+    encode cache. With its shards gone from the device cache, the next run
+    builds it on the device again (copying no stand-in) and answers as
+    before; the run after is warm and builds nothing."""
+    tctx, _ = ctxs[500_000]
+    TE.clear_caches()
+    want = tctx.sql(_sql("q1")).collect()
+    (enc,) = [v for k, v in TE._ENC_CACHE._entries.items() if k[0] == "fused_in"]
+    assert all(a.device.type == "meta" for a in enc.arrays)
+    evicted = [k for k in TE._DEV_CACHE._entries if k[0][0] == "fused_dev"]
+    assert evicted
+    for k in evicted:
+        TE._DEV_CACHE.invalidate(k)
+    assert tctx.sql(_sql("q1")).collect().equals(want)
+    assert tctx.last_engine_metrics["op.FusedInput.device_builds"] == 1.0
+    assert all(k in TE._DEV_CACHE._entries for k in evicted)
+    assert tctx.sql(_sql("q1")).collect().equals(want)
+    assert not any(k.startswith("op.FusedInput.") for k in tctx.last_engine_metrics)
+
+
+def test_host_sharded_input_replaces_a_device_build(ctxs):
+    """A megastage reads the fused input's host encoding: where the cache
+    holds a device build's stand-ins under the input's key, the host build
+    takes their place."""
+    tctx, _ = ctxs[500_000]
+    TE.clear_caches()
+    child = _fused_input(tctx, "q1")
+    engine = TE.TorchEngine(tctx.config, device="cpu")
+    FX._sharded_input(engine, child, port_mesh(1, "cpu"))
+    assert engine.op_metrics["op.FusedInput.device_builds"] == 1.0
+    enc = FX.host_sharded_input(engine, child, 1)
+    assert all(isinstance(a, np.ndarray) for a in enc.arrays)
+    assert engine.op_metrics["op.FusedInput.host_builds"] == 1.0
+    assert FX.host_sharded_input(engine, child, 1) is enc
 
 
 def _write_table(path, values):
