@@ -186,9 +186,11 @@ class Catalog:
             # row-group-sized column-projected reads: the oversize bail fires
             # after ~max_dict_size distinct values regardless of file layout
             # (a single-file comments column must not be read whole just to
-            # discover its decline)
+            # discover its decline); decoded on the calling thread, as the
+            # columns are built on threads of their own
             for f in files:
-                for rb in _pf(f).iter_batches(columns=[col], batch_size=65536):
+                for rb in _pf(f).iter_batches(columns=[col], batch_size=65536,
+                                              use_threads=False):
                     yield rb.column(0)
 
         self._build_dicts(meta, string_chunks)

@@ -452,8 +452,9 @@ def shape_signature(enc) -> tuple:
         elif dictionary is not None:
             sig.append((dt.value, has_null, "dict", len(dictionary), "content"))
         else:
+            # numpy's dtype name, or a stand-in tensor's without "torch."
             sig.append((dt.value, has_null, None, scale,
-                        str(getattr(enc.arrays[i], "dtype", ""))))
+                        str(getattr(enc.arrays[i], "dtype", "")).replace("torch.", "")))
         i += 2 if has_null else 1
     return tuple(sig)
 

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import hashlib
 import logging
+import os
 import threading
 from typing import Optional
 
@@ -211,32 +212,41 @@ def build_table_dictionaries(
     ``string_chunks`` is a callable ``column_name -> iterable of pyarrow
     string arrays`` (file-by-file for parquet, partition-by-partition for
     memory tables) so the build streams and the oversize bail stops reading
-    a column early."""
+    a column early. The columns are read and reduced on threads of their
+    own (Arrow releases the GIL), one per host core at most; the ids are
+    minted and registered in schema order afterwards."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ballista_tpu_torch.plan.schema import DataType
 
-    refs: dict[str, str] = {}
-    declines: dict[str, str] = {}
-    for f in schema:
-        if f.dtype is not DataType.STRING:
-            continue
+    def build(col: str):
         try:
-            values = build_shared_dictionary(string_chunks(f.name), max_size)
+            return build_shared_dictionary(string_chunks(col), max_size), None
         except Exception as e:  # noqa: BLE001 - the dictionary is an
             # optimization; a build failure must never fail registration
-            log.warning("shared dictionary build for %s.%s failed: %s",
-                        name, f.name, e)
-            declines[f.name] = f"build failed: {e}"
+            return None, e
+
+    cols = [f.name for f in schema if f.dtype is DataType.STRING]
+    workers = max(1, min(len(cols), os.cpu_count() or 1))
+    with ThreadPoolExecutor(max_workers=workers, thread_name_prefix="dicts") as pool:
+        built = list(pool.map(build, cols))
+    refs: dict[str, str] = {}
+    declines: dict[str, str] = {}
+    for col, (values, e) in zip(cols, built):
+        if e is not None:
+            log.warning("shared dictionary build for %s.%s failed: %s", name, col, e)
+            declines[col] = f"build failed: {e}"
             continue
         if values is None:
-            declines[f.name] = (
+            declines[col] = (
                 f"distinct count exceeds ballista.engine.max_dict_size={max_size}"
             )
             log.info("shared dictionary declined for %s.%s: %s",
-                     name, f.name, declines[f.name])
+                     name, col, declines[col])
             continue
-        did = make_dict_id(name, f.name, version, values)
+        did = make_dict_id(name, col, version, values)
         REGISTRY.ensure(did, values)
-        refs[f.name] = did
+        refs[col] = did
     return refs, declines
 
 

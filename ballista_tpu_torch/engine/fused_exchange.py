@@ -192,15 +192,10 @@ def host_sharded_input(engine, child: P.PhysicalPlan, n_dev: int) -> KT.EncodedB
         return _build_sharded_input(engine, child, n_dev)
 
     enc = engine._leaf_lookup(TE._ENC_CACHE, ("fused_in", key), build)
-    if _stand_ins(enc):
+    if TE.stand_ins(enc):
         enc = build()
-        TE._ENC_CACHE.put(("fused_in", key), enc)
+        engine._leaf_put(TE._ENC_CACHE, ("fused_in", key), enc)
     return enc
-
-
-def _stand_ins(enc: KT.EncodedBatch) -> bool:
-    """Whether the encoding was built on the device (its arrays stand-ins)."""
-    return isinstance(enc.arrays[-1], torch.Tensor)
 
 
 def _on_mesh(engine, enc: KT.EncodedBatch, mesh: list, cache_key: Optional[tuple]) -> list:
@@ -235,13 +230,14 @@ def _sharded_input(engine, child: P.PhysicalPlan, mesh: list):
         return enc
 
     enc = engine._leaf_lookup(TE._ENC_CACHE, ("fused_in", key), build)
-    if _stand_ins(enc):
+    if TE.stand_ins(enc):
         def shard(i):
             if not built:
                 # a device-cache miss of an input built on the device
                 again = build()
                 if not built:  # built on the host this time
                     built.append(_on_mesh(engine, again, mesh, None))
+            engine._room_for(_nbytes(built[0][i]))
             return built[0][i]
 
         shards = [engine._leaf_lookup(TE._DEV_CACHE, engine._dev_key(("fused_dev", key, i), dev),

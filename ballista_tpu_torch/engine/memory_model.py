@@ -63,10 +63,17 @@ log = logging.getLogger("ballista.memory")
 
 GiB = 1 << 30
 
-# fraction of the card's memory the governor plans against: the leaf caches,
-# the allocator's own reserve and other processes share the card with stage
-# programs
+# fraction of the card's memory the governor plans against: the allocator's
+# own reserve and other processes share the card with it (the leaf caches'
+# device copies are inside it: DEVICE_CACHE_SHARE)
 DEFAULT_BUDGET_FRACTION = 0.85
+
+# share of the device budget the leaf caches' device copies may hold
+# (``torch_engine._DEV_CACHE``, sized on a CUDA engine's first use): a warm
+# TPC-H SF10 working set (about 16 GB) fits it with room, and a stage is
+# admitted against the budget less what the cache holds
+# (:func:`admission_budget_bytes`), so it keeps at least the rest
+DEVICE_CACHE_SHARE = 0.4
 
 # paged join: never split into more passes than this (each pass costs a spill
 # round trip; a join needing more passes than this against its budget is
@@ -315,6 +322,22 @@ def resolve_budget_bytes(config, detected_bytes: Optional[int] = None, device=No
     if detected_bytes is not None:
         return max(0, int(detected_bytes))
     return detect_device_budget_bytes(device)
+
+
+def device_cache_bytes(budget_bytes: int) -> int:
+    """The capacity of the leaf caches' device copies on a card whose
+    budget is ``budget_bytes``: :data:`DEVICE_CACHE_SHARE` of it."""
+    return int(max(0, budget_bytes) * DEVICE_CACHE_SHARE)
+
+
+def admission_budget_bytes(budget_bytes: int, resident_bytes: float) -> int:
+    """The budget a stage is admitted against: ``budget_bytes`` less the
+    ``resident_bytes`` the leaf caches hold on its card (they occupy the
+    card while the stage runs). 0 stays 0 (no budget); a budget the cache
+    has filled stays 1 byte, so it never reads as none."""
+    if budget_bytes <= 0:
+        return budget_bytes
+    return max(1, int(budget_bytes - max(0.0, resident_bytes)))
 
 
 def govern_with_config(

@@ -48,7 +48,9 @@ time (``op.PagedJoin.count``, ``op.PagedJoin.passes``), as a join the
 client's admission flagged ``paged`` always is. A fused exchange whose
 estimate exceeds the budget is declined. Each stage records its estimate
 (``op.HbmEst.max_bytes``) and, on the card, its measured peak
-(``op.HbmPeak.max_bytes``).
+(``op.HbmPeak.max_bytes``). The leaf caches' device copies hold up to
+``memory_model.DEVICE_CACHE_SHARE`` of the budget, and a stage or fused
+program is admitted against the budget less what they hold on its card.
 
 With a trace context (``trace_ctx``), the engine records the JAX engine's
 spans: ``CompiledStage`` per device stage (its rows, ``execute_ms``, the
@@ -95,6 +97,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import threading
 import time
 from dataclasses import replace
 from typing import Optional
@@ -138,20 +141,62 @@ log = logging.getLogger("ballista.engine")
 # CUDA engine in one process never share a tensor. On the CPU a cached
 # tensor shares memory with its cached host array, and on CUDA every later
 # query reads it: no stage may write a leaf tensor in place.
+#
+# On CUDA an encoding whose tensors are in the device cache keeps only its
+# metadata on the host: its arrays become storage-free stand-ins
+# (``stand_ins``), weighed as nothing and never evicted for weight, as a
+# fused input built on the device is (fused_exchange). When the device copy
+# leaves the cache, its stand-in goes too (``_device_evicted``), so the next
+# lookup encodes again. The device cache is sized on the first CUDA use, to
+# ``memory_model.DEVICE_CACHE_SHARE`` of the engine's device budget
+# (``_size_device_cache``), and a stage is admitted against the budget less
+# what it holds on the card (``_stage_budget``).
+def stand_ins(enc: KT.EncodedBatch) -> bool:
+    """Whether the encoding's arrays are storage-free stand-ins."""
+    return bool(enc.arrays) and isinstance(enc.arrays[-1], torch.Tensor)
+
+
+def _with_stand_ins(enc: KT.EncodedBatch) -> KT.EncodedBatch:
+    """The encoding with its host arrays replaced by ``meta`` tensors of the
+    same shapes and dtypes."""
+    return replace(enc, arrays=[
+        torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype, device="meta")
+        for a in enc.arrays])
+
+
+def _device_evicted(key: tuple, _tensors) -> None:
+    """A device copy left the cache (evicted, invalidated or cleared): the
+    host entry standing in for it goes too. A scan leaf's host key is its
+    content key; a fused input's shard ``("fused_dev", k, i)`` stands for
+    the input ``("fused_in", k)``."""
+    content = key[0]
+    host = ("fused_in", content[1]) if content[0] == "fused_dev" else content
+    _ENC_CACHE.invalidate_if(host, stand_ins)
+
+
 _ENC_CACHE: LoadingCache = LoadingCache(
-    # a fused input built on the device holds storage-free stand-ins
-    # (fused_exchange), weighed as nothing
     capacity=4 * 1024**3,
     weigher=lambda enc: sum(a.nbytes for a in enc.arrays if isinstance(a, np.ndarray)),
+    keep_weightless=True,
 )
 _DEV_CACHE: LoadingCache = LoadingCache(
-    capacity=8 * 1024**3, weigher=lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    # until a CUDA engine sizes it from its card (_size_device_cache)
+    capacity=8 * 1024**3, weigher=lambda ts: sum(t.numel() * t.element_size() for t in ts),
+    eviction_listener=_device_evicted,
 )
+_DEV_CACHE_SIZED = False
+# depth of leaf-cache calls on this thread: evictions count once, in the
+# outermost (a loader may look up other leaves)
+_LOOKUP = threading.local()
 
 
 def clear_caches() -> None:
     _ENC_CACHE.clear()
     _DEV_CACHE.clear()
+
+
+def _evicted_bytes() -> float:
+    return _ENC_CACHE.evicted_weight + _DEV_CACHE.evicted_weight
 
 
 def resolve_device(device: Optional[str]) -> str:
@@ -375,16 +420,65 @@ class TorchEngine(NumpyEngine):
     def _leaf_lookup(self, cache: LoadingCache, key, load):
         """``cache.get_with(key, load)``, counted in ``op.LeafCache.hits``
         or ``op.LeafCache.misses`` as the cache counts it (a load that
-        another thread made for this key is a hit)."""
+        another thread made for this key is a hit), and for the device
+        cache in ``op.LeafCache.device_hits`` or ``device_misses`` too."""
         loaded = []
 
         def loader():
             loaded.append(True)
             return load()
 
-        value = cache.get_with(key, loader)
+        on_device = cache is _DEV_CACHE
+        if on_device:
+            self._size_device_cache()
+        value = self._leaf_call(lambda: cache.get_with(key, loader))
         self._metric("op.LeafCache.misses" if loaded else "op.LeafCache.hits", 1.0)
+        if on_device:
+            self._metric("op.LeafCache.device_misses" if loaded else "op.LeafCache.device_hits",
+                         1.0)
         return value
+
+    def _leaf_put(self, cache: LoadingCache, key, value) -> None:
+        self._leaf_call(lambda: cache.put(key, value))
+
+    def _leaf_call(self, call):
+        """``call()`` of a leaf cache, the bytes either cache evicted
+        meanwhile added to ``op.LeafCache.evicted_bytes`` (in the outermost
+        call on this thread only: a loader's own lookups are inside it)."""
+        depth = getattr(_LOOKUP, "depth", 0)
+        before = _evicted_bytes() if depth == 0 else 0.0
+        _LOOKUP.depth = depth + 1
+        try:
+            return call()
+        finally:
+            _LOOKUP.depth = depth
+            if depth == 0:
+                evicted = _evicted_bytes() - before
+                if evicted:
+                    self._metric("op.LeafCache.evicted_bytes", evicted)
+
+    def _size_device_cache(self) -> None:
+        """On a CUDA engine: the device cache's capacity, resolved once in
+        the process from this engine's device budget
+        (``memory_model.device_cache_bytes``; the card's detected budget
+        when the governor is off), counted in
+        ``op.LeafCache.device_capacity.max_bytes``."""
+        global _DEV_CACHE_SIZED
+        if self.device.type != "cuda":
+            return
+        if not _DEV_CACHE_SIZED:
+            budget = self._hbm_budget() or MM.detect_device_budget_bytes(self.device)
+            _DEV_CACHE.capacity = MM.device_cache_bytes(budget)
+            _DEV_CACHE_SIZED = True
+        self._metric_max("op.LeafCache.device_capacity.max_bytes", _DEV_CACHE.capacity)
+
+    def _room_for(self, nbytes: float) -> None:
+        """Evicts device copies, least recently used first, until ``nbytes``
+        more fit the device cache: before a copy allocates, so the memory
+        is free first (the range ``ballista.leaf.evict``)."""
+        if _DEV_CACHE.total_weight() + nbytes > _DEV_CACHE.capacity:
+            with self._phase("ballista.leaf.evict"):
+                _DEV_CACHE.evict_for(nbytes)
 
     def _dev_key(self, key: tuple, device=None) -> tuple:
         """A device-cache key: the content key with its device (default the
@@ -683,7 +777,7 @@ class TorchEngine(NumpyEngine):
         _final, agg_ex, _partial, join = parts
         if any(self._fuse_over_cap(r.est_rows) for r in (agg_ex, join.left, join.right)):
             return self._ici_demote(ici_ids, "input exceeds the fused-exchange cap")
-        budget = self._hbm_budget()
+        budget = self._stage_budget()
         if budget > 0:
             # the running max over segments, as the JAX package prices it
             segments = [[(r.schema(), r.est_rows) for r in (join.left, join.right) if r.est_rows],
@@ -722,7 +816,7 @@ class TorchEngine(NumpyEngine):
         merged result of each), from the planner's row estimates. A designed
         decline, counted once per execution in ``op.FusedDeclined.count``:
         the materialized exchange runs instead."""
-        budget = self._hbm_budget()
+        budget = self._stage_budget()
         if budget <= 0:
             return None
         est = sum(MM.estimate_ici_exchange_bytes(x.schema(), x.est_rows, self.mesh_devices)
@@ -757,6 +851,22 @@ class TorchEngine(NumpyEngine):
                     shards_per_card(mesh))
             self._hbm_budget_v = MM.resolve_budget_bytes(self.config, detected, self.device)
         return self._hbm_budget_v
+
+    def _stage_budget(self) -> int:
+        """The budget a stage or fused program is admitted against: the
+        device budget less the leaf caches' device copies on this engine's
+        card, pinned ones included (``memory_model.admission_budget_bytes``).
+        On the CPU cached tensors share host memory: the budget as it is."""
+        budget = self._hbm_budget()
+        if budget <= 0:
+            return budget
+        return MM.admission_budget_bytes(budget, self._cache_resident_bytes())
+
+    def _cache_resident_bytes(self) -> float:
+        """The device cache's bytes on this engine's card; 0 on the CPU."""
+        if self.device.type != "cuda":
+            return 0.0
+        return _resident_on_card(_card_index(self.device))
 
     def _paged_join_enabled(self) -> bool:
         return bool(self.config.get(BALLISTA_ENGINE_PAGED_JOIN))
@@ -824,7 +934,7 @@ class TorchEngine(NumpyEngine):
 
         probe = self._exec(plan.left, part)
         build = self._exec(plan.right, part)
-        budget = self._hbm_budget()
+        budget = self._stage_budget()
         limit = int(budget * self._paged_threshold()) if budget > 0 else 0
         # passes are sized with the build's real duplicate runs (a key's
         # duplicates share a bucket, so splitting never shortens them),
@@ -935,7 +1045,7 @@ class TorchEngine(NumpyEngine):
             self._metric_max("op.HbmEst.max_bytes", self._last_hbm_est)
             est = MM.estimate_eager_program_bytes(plan, leaves)
             self._metric_max("op.HbmEstEager.max_bytes", est)
-            budget = self._hbm_budget()
+            budget = self._stage_budget()
             if (budget > 0 and est > self._paged_threshold() * budget and not self._in_paged
                     and self._paged_join_enabled()):
                 # never a join whose output a fused exchange supplied (an "out"
@@ -952,7 +1062,7 @@ class TorchEngine(NumpyEngine):
         if self._precompile_enabled():
             self._adopt_warm(plan, leaves)
         with self._phase("ballista.stage.args"):
-            tensors = self._device_args(leaves)
+            tensors = self._device_args(leaves, part)
         stage_fn, holder = _make_stage_fn(plan, _stage_layout(leaves))
 
         in_rows = float(sum(enc.n_rows for _, enc, _, _, _ in leaves.values()))
@@ -1026,7 +1136,9 @@ class TorchEngine(NumpyEngine):
         the plan as a MemoryScanExec (nothing upstream runs again)."""
 
         def scan_of(node: P.PhysicalPlan, enc) -> P.MemoryScanExec:
-            batch = KT.decode_encoded_batch(enc)
+            # a stand-in's rows are on the device only: its scan runs again
+            batch = (self._exec_child(node, part) if stand_ins(enc)
+                     else KT.decode_encoded_batch(enc))
             parts = [batch if i == part else ColumnBatch.empty(enc.schema)
                      for i in range(max(node.output_partitions(), part + 1))]
             return P.MemoryScanExec(parts, enc.schema, ephemeral=True)
@@ -1058,12 +1170,12 @@ class TorchEngine(NumpyEngine):
         finally:
             self._host_only -= 1
 
-    def _device_args(self, leaves: dict) -> list:
+    def _device_args(self, leaves: dict, part: int) -> list:
         """Every leaf array on the device, in the stage's parameter order (a
         build leaf's sorted keys after its columns); leaves with a cache key
         through the device cache."""
         out = []
-        for _kind, enc, extra, cache_key, _node in leaves.values():
+        for kind, enc, extra, cache_key, node in leaves.values():
             arrays = enc.arrays if extra is None else enc.arrays + [extra[0]]
             # a streamed chunk whose copies the prefetch already issued on
             # the side stream (single-use, like its pre-encode)
@@ -1072,8 +1184,32 @@ class TorchEngine(NumpyEngine):
                 enc._pre_dev = None
                 out.extend(self._await_prefetched(*pre))
                 continue
+            if kind == "out" and cache_key is not None:
+                out.extend(self._resident_leaf(enc, cache_key, node, part))
+                continue
             out.extend(self._cached_on_device(cache_key, arrays))
         return out
+
+    def _resident_leaf(self, enc, key: tuple, node: P.PhysicalPlan, part: int) -> list:
+        """A cached scan leaf's tensors, through the device cache. On CUDA
+        its host entry then keeps only the metadata (``_with_stand_ins``);
+        a stand-in whose device copy has gone is encoded again from its
+        scan."""
+        def host() -> list:
+            if not stand_ins(enc):
+                return enc.arrays
+            return self._encode(self._exec_child(node, part)).arrays
+
+        tensors = self._cached_on_device(key, enc.arrays, host=host)
+        if self._keeps_stand_ins() and not stand_ins(enc):
+            self._leaf_put(_ENC_CACHE, key, _with_stand_ins(enc))
+        return tensors
+
+    def _keeps_stand_ins(self) -> bool:
+        """Whether a leaf on the device keeps only stand-ins on the host:
+        on CUDA. On the CPU a cached tensor shares its host array's memory,
+        so dropping the array frees nothing."""
+        return self.device.type == "cuda"
 
     def _await_prefetched(self, tensors: list, done) -> list:
         """Tensors the prefetch copied on the side stream, made safe to use
@@ -1089,16 +1225,24 @@ class TorchEngine(NumpyEngine):
         return tensors
 
     def _cached_on_device(self, cache_key: Optional[tuple], arrays: list,
-                          device=None) -> list:
+                          device=None, host=None) -> list:
         """``arrays`` on ``device`` (default the engine's), read through the
-        device cache under ``cache_key`` unless it is None."""
+        device cache under ``cache_key`` unless it is None. ``host()``, when
+        given, supplies the host arrays to copy (``arrays`` may be
+        stand-ins)."""
         if cache_key is None:
             return self._to_device(arrays, device)
         key = self._dev_key(cache_key, device)
-        cached = self._leaf_lookup(_DEV_CACHE, key, lambda: self._to_device(arrays, device))
+
+        def load() -> list:
+            src = arrays if host is None else host()
+            self._room_for(sum(a.nbytes for a in src))
+            return self._to_device(src, device)
+
+        cached = self._leaf_lookup(_DEV_CACHE, key, load)
         if len(cached) != len(arrays):  # stale entry shape: reload
-            cached = self._to_device(arrays, device)
-            _DEV_CACHE.put(key, cached)
+            cached = load()
+            self._leaf_put(_DEV_CACHE, key, cached)
         return cached
 
     def _to_device(self, arrays: list, device=None) -> list:
@@ -1540,7 +1684,7 @@ class TorchEngine(NumpyEngine):
                 if used + est > budget:
                     raise CS.Unhintable(f"over budget: {est} bytes estimated, {used} of "
                                         f"{budget} in use")
-            tensors = self._device_args(leaves)
+            tensors = self._device_args(leaves, part)
             stage_fn, _holder = _make_stage_fn(plan, _stage_layout(leaves))
             on_card = self.device.type == "cuda"
             with CS.WINDOW.warm():
@@ -1571,6 +1715,28 @@ def _shape_key(leaves: dict) -> tuple:
 
     return tuple((kind, layout(enc), None if extra is None else (tuple(extra[0].shape), extra[1]))
                  for kind, enc, extra, _key, _node in leaves.values())
+
+
+def _card_index(device) -> int:
+    """The index of the CUDA card ``device`` names (the current one for a
+    bare ``cuda``)."""
+    d = torch.device(device)
+    return d.index if d.index is not None else torch.cuda.current_device()
+
+
+# a device-cache key's device string -> its card's index (None: not CUDA)
+_KEY_CARDS: dict = {}
+
+
+def _resident_on_card(card: int) -> float:
+    """The bytes of the device cache's copies on CUDA card ``card``."""
+    def on_card(key) -> bool:
+        dev = key[1]
+        if dev not in _KEY_CARDS:
+            _KEY_CARDS[dev] = _card_index(dev) if dev.startswith("cuda") else None
+        return _KEY_CARDS[dev] == card
+
+    return _DEV_CACHE.total_weight(on_card)
 
 
 def _leaf_cache_key(node: P.PhysicalPlan, part: int) -> Optional[tuple]:

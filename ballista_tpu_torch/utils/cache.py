@@ -6,6 +6,13 @@ same key (one loader runs; the others wait), an LRU policy accounts per-entry
 resource cost, and listeners observe evictions. Used for the executor's
 data-cache layer (``ballista.data_cache.enabled``) and the torch engine's
 host-encode/device-transfer caches.
+
+Eviction accounting: ``evictions`` counts the entries dropped for weight and
+``evicted_weight`` their summed weight (an invalidation or ``clear`` is no
+eviction). ``evict_for(weight)`` makes room for an entry before it is
+loaded, so a loader that allocates (a device copy) finds the memory freed
+first. With ``keep_weightless`` an entry that weighs nothing is never
+evicted for weight (dropping it frees nothing): its owner invalidates it.
 """
 from __future__ import annotations
 
@@ -25,8 +32,10 @@ class LoadingCache(Generic[K, V]):
         capacity: int | float,
         weigher: Optional[Callable[[V], float]] = None,
         eviction_listener: Optional[Callable[[K, V], None]] = None,
+        keep_weightless: bool = False,
     ):
         self.capacity = capacity
+        self.keep_weightless = keep_weightless
         self.weigher = weigher or (lambda v: 1)
         self.eviction_listener = eviction_listener
         self._mu = threading.Lock()
@@ -38,6 +47,7 @@ class LoadingCache(Generic[K, V]):
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.evicted_weight = 0.0
 
     # ---- pinning (reference: the cache policy layer — pinned entries are
     # never evicted; the TPU use is keeping a hot table's device arrays
@@ -95,6 +105,22 @@ class LoadingCache(Generic[K, V]):
             self._pinned.discard(key)
             self._drop(key)
 
+    def invalidate_if(self, key: K, predicate: Callable[[V], bool]) -> None:
+        """Drops ``key`` when its value satisfies ``predicate``."""
+        with self._mu:
+            if key in self._entries and predicate(self._entries[key]):
+                self._pinned.discard(key)
+                self._drop(key)
+
+    def evict_for(self, weight: float) -> float:
+        """Evicts unpinned entries, least recently used first, until an
+        entry of ``weight`` fits under the capacity beside what stays;
+        returns the weight evicted."""
+        with self._mu:
+            before = self.evicted_weight
+            self._evict(self._pinned_weight() - weight)
+            return self.evicted_weight - before
+
     def clear(self) -> None:
         with self._mu:
             self._pinned.clear()
@@ -104,8 +130,12 @@ class LoadingCache(Generic[K, V]):
     def __len__(self) -> int:
         return len(self._entries)
 
-    def total_weight(self) -> float:
-        return self._total
+    def total_weight(self, where: Optional[Callable[[K], bool]] = None) -> float:
+        """The weight held, of the keys ``where`` accepts when given."""
+        if where is None:
+            return self._total
+        with self._mu:
+            return sum(w for k, w in self._weights.items() if where(k))
 
     # ---- internals (call with lock held) -----------------------------------------
     @concurrency.guarded_by("_mu")
@@ -121,9 +151,7 @@ class LoadingCache(Generic[K, V]):
         # pinned weight sits OUTSIDE the LRU budget: pinning a table larger
         # than the cache must not turn every other entry into insert-evict
         # thrash (the budget governs the unpinned working set)
-        pinned_w = (
-            sum(self._weights.get(k, 0) for k in self._pinned) if self._pinned else 0
-        )
+        pinned_w = self._pinned_weight()
         if pinned_w > self.capacity and not getattr(self, "_pin_warned", False):
             self._pin_warned = True
             import logging
@@ -133,11 +161,24 @@ class LoadingCache(Generic[K, V]):
                 "(%.1f MB); unpinned entries still get the full budget",
                 pinned_w / 1e6, self.capacity / 1e6,
             )
-        if self._total - pinned_w <= self.capacity:
+        self._evict(pinned_w, keep=key)
+
+    @concurrency.guarded_by("_mu")
+    def _pinned_weight(self) -> float:
+        return sum(self._weights.get(k, 0) for k in self._pinned) if self._pinned else 0
+
+    @concurrency.guarded_by("_mu")
+    def _evict(self, outside: float, keep=None) -> None:
+        """Evicts least recently used entries (never a pinned one, nor
+        ``keep``) until the total less ``outside`` fits the capacity."""
+        if self._total - outside <= self.capacity:
             return
-        evictable = [k for k in self._entries if k not in self._pinned and k != key]
-        while self._total - pinned_w > self.capacity and evictable:
-            self._drop(evictable.pop(0))
+        evictable = [k for k in self._entries if k not in self._pinned and k != keep
+                     and not (self.keep_weightless and self._weights[k] == 0)]
+        while self._total - outside > self.capacity and evictable:
+            k = evictable.pop(0)
+            self.evicted_weight += self._weights[k]
+            self._drop(k)
             self.evictions += 1
 
     @concurrency.guarded_by("_mu")

@@ -136,14 +136,16 @@ def test_phase_counters_reach_last_engine_metrics(ctx):
 def test_operator_time_leaves_out_the_stages_below(ctx, monkeypatch):
     """q1's merge runs on the host over device stages: each stage is a
     child of it, so the merge's own time and its span's ``self_ms`` hold
-    none of the stages' (each made 0.1 s longer here)."""
-    run = TE.TorchEngine._run_stage
+    none of the stages' (each made 0.1 s longer here: a stage that ends
+    in its fetch and one whose output stays on the device for a fused
+    input built there alike)."""
+    run = TE.TorchEngine._stage_on_device
 
     def slow(self, plan, part):
         time.sleep(0.1)
         return run(self, plan, part)
 
-    monkeypatch.setattr(TE.TorchEngine, "_run_stage", slow)
+    monkeypatch.setattr(TE.TorchEngine, "_stage_on_device", slow)
     TE.clear_caches()
     ctx.sql(_sql("q1")).collect()
     m = ctx.last_engine_metrics
