@@ -487,31 +487,40 @@ def build_side_encoding(engine, join_plan: P.HashJoinExec, n_dev: int) -> KT.Enc
     return engine._leaf_lookup(TE._ENC_CACHE, ("fused_jb", rkey, _on_sig(join_plan)), build)
 
 
-def _on_sig(join_plan: P.HashJoinExec) -> tuple:
-    return tuple(repr(r) for _, r in join_plan.on)
+def _on_sig(join_plan: P.HashJoinExec, side: int = 1) -> tuple:
+    """The join-key signature of one side (0 left, 1 right)."""
+    return tuple(repr(pair[side]) for pair in join_plan.on)
 
 
-def _join_bytes(lenc: KT.EncodedBatch, renc: KT.EncodedBatch, n_dev: int,
-                right_schema, n_local: Optional[int] = None) -> int:
+def _join_bytes(penc: KT.EncodedBatch, benc: KT.EncodedBatch, n_dev: int,
+                build_schema, n_local: Optional[int] = None) -> int:
     """A shard's eager bytes of the fused join: both sides' exchanges with
     their consumer (the build's sort, the probe), and the build columns
-    gathered onto every received probe row. The encodings hold the rows of
-    ``n_local`` of the mesh's ``n_dev`` shards (default: all of them; a mesh
-    group's member holds its own shards' only), so the mesh's rows are
-    theirs times ``n_dev / n_local``."""
+    gathered onto every received probe row. ``penc`` is the probing side's
+    encoding, ``benc`` the sorted side's, whichever of the join's sides each
+    is. The encodings hold the rows of ``n_local`` of the mesh's ``n_dev``
+    shards (default: all of them; a mesh group's member holds its own
+    shards' only), so the mesh's rows are theirs times ``n_dev / n_local``."""
     scale = n_dev // (n_local or n_dev)
-    lrows, rrows = lenc.n_pad * scale, renc.n_pad * scale
+    prows, brows = penc.n_pad * scale, benc.n_pad * scale
     return (MM.estimate_eager_megastage_bytes(
-                [[(lenc.schema, lrows), (renc.schema, rrows)]], n_dev)
-            + lrows * (MM.row_data_bytes(right_schema) + 1))
+                [[(penc.schema, prows), (benc.schema, brows)]], n_dev)
+            + prows * (MM.row_data_bytes(build_schema) + 1))
 
 
 def run_fused_join(engine, join_plan: P.HashJoinExec, n_dev: int):
     """A partitioned hash join as one program: both inputs exchanged by
     join-key hash, each shard sorting the build rows it received and
     probing them with ``searchsorted``. Inner, left, semi and anti joins
-    whose build keys are unique (the PK-FK shape); None for any other shape,
-    or when an exchange drops rows past its capacity."""
+    whose build keys are unique (the PK-FK shape). An inner join whose build
+    keys repeat runs with the roles exchanged when its left side's keys are
+    unique: the left rows are sorted and the right rows probe them
+    (``op.FusedJoin.swapped``). The left side's uniqueness is read from the
+    program's own sort and remembered on its cached input
+    (``keys_unique``), so a join whose two sides both repeat runs at most
+    one such program per input content. None for any other shape, or when
+    an exchange drops rows past its capacity, or the sorted side's keys
+    repeat."""
     from ballista_tpu_torch.parallel.mesh import build_mesh
 
     if join_plan.how not in ("inner", "left", "semi", "anti") or not join_plan.on:
@@ -522,18 +531,29 @@ def run_fused_join(engine, join_plan: P.HashJoinExec, n_dev: int):
     except _EmptyInput:
         return None
     renc = build_side_encoding(engine, join_plan, n_dev)
-    if not renc.build_unique:
-        return None
+    build_left = not renc.build_unique
+    if build_left:
+        if join_plan.how != "inner":
+            return None
+        lsig = _on_sig(join_plan, 0)
+        if not vars(lenc).get("keys_unique", {}).get(lsig, True):
+            return None
     rkey = _input_content_key(join_plan.right.input, n_dev)
     rdev = _on_mesh(engine, renc, mesh,
                     None if rkey is None else ("fused_jb_dev", rkey, _on_sig(join_plan)))
 
     holders = [{} for _ in mesh]
-    fns = [make_join_dev_fn(join_plan, lenc, renc, n_dev, h) for h in holders]
+    fns = [make_join_dev_fn(join_plan, lenc, renc, n_dev, h, build_left) for h in holders]
     out, dt = _run_mesh(engine, fns, [ld + rd for ld, rd in zip(ldev, rdev)], mesh,
                         lenc.n_rows + renc.n_rows,
-                        join_estimate(join_plan, lenc, renc, n_dev, n_dev))
+                        join_estimate(join_plan, lenc, renc, n_dev, n_dev, build_left))
+    if build_left:
+        with engine._wait():
+            dup = int(out[-1].reshape(-1, 2)[:, 1].sum())
+        vars(lenc).setdefault("keys_unique", {})[lsig] = dup == 0
     result = _finish_fused(engine, holders[0], out, join_plan.output_partitions())
+    if build_left and result is not None:
+        engine._metric("op.FusedJoin.swapped", 1.0)
     # rows past an exchange's capacity surface as None (the caller demotes a
     # promoted exchange): only a completed collective counts
     _note_ici_metrics(engine, result is not None and (
@@ -543,26 +563,32 @@ def run_fused_join(engine, join_plan: P.HashJoinExec, n_dev: int):
 
 
 def join_estimate(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.EncodedBatch,
-                  n_local: int, n_dev: int):
+                  n_local: int, n_dev: int, build_left: bool = False):
     """``estimate(i)``: local shard ``i``'s eager bytes in a fused join over
     ``n_dev`` shards whose ``n_local`` local shards split ``lenc`` and
-    ``renc``: its inputs, and the exchanges and probe of ``_join_bytes``."""
+    ``renc``: its inputs, and the exchanges and probe of ``_join_bytes``
+    with the roles as run (``build_left``: the left side sorted, the right
+    side probing it)."""
     largs = split_rows(lenc.arrays, n_local)
     rargs = split_rows(renc.arrays, n_local)
+    if build_left:
+        tail = _join_bytes(renc, lenc, n_dev, join_plan.left.schema(), n_local)
+    else:
+        tail = _join_bytes(lenc, renc, n_dev, join_plan.right.schema(), n_local)
 
     def estimate(i):
-        return (sum(a.nbytes for a in largs[i] + rargs[i])
-                + _join_bytes(lenc, renc, n_dev, join_plan.right.schema(), n_local))
+        return sum(a.nbytes for a in largs[i] + rargs[i]) + tail
 
     return estimate
 
 
 def make_join_dev_fn(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.EncodedBatch,
-                     n_dev: int, holder: dict):
+                     n_dev: int, holder: dict, build_left: bool = False):
     """The per-shard body of the fused partitioned join. Its last output is
-    the mesh's "unfusable" count (rows dropped past an exchange's capacity
-    plus duplicate build keys): non-zero means the result is incomplete."""
-    body = make_join_body(join_plan, lenc, renc, n_dev, holder)
+    the mesh's "unfusable" counts (rows dropped past an exchange's capacity,
+    duplicate keys on the sorted side): non-zero means the result is
+    incomplete."""
+    body = make_join_body(join_plan, lenc, renc, n_dev, holder, build_left)
 
     def dev_fn(*arrays):
         nl = len(lenc.arrays)
@@ -577,12 +603,17 @@ def make_join_dev_fn(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.
 
 
 def make_join_body(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.EncodedBatch,
-                   n_dev: int, holder: dict):
+                   n_dev: int, holder: dict, build_left: bool = False):
     """``body(ldb, rdb) -> (out_db, bad)``: both sides exchanged by the
     non-negative int64 key (the splitmix64 of the canonical join keys with
     the top bit dropped, so sort order and ``searchsorted`` agree), the
-    received build rows sorted by key, the received probe rows probed.
-    Adds both exchanges' bytes to ``holder["ici_bytes"]``."""
+    received build rows sorted by key, the received probe rows probed. The
+    build side is the right one, or with ``build_left`` (inner joins only)
+    the left one, probed by the right; the output keeps
+    ``join_plan.schema()``'s column order either way. ``bad`` is
+    ``[rows dropped past an exchange's capacity, duplicate build keys]``,
+    each summed over the mesh. Adds both exchanges' bytes to
+    ``holder["ici_bytes"]``."""
 
     def key_mix(db: KT.DeviceBatch, exprs):
         mixed = torch.zeros(db.n_pad, dtype=torch.int64, device=db.device)
@@ -619,58 +650,71 @@ def make_join_body(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.En
                                      dict_id=dids[i]))
         return cols
 
+    lexprs = [l for l, _ in join_plan.on]
+    rexprs = [r for _, r in join_plan.on]
+    # the probing side's encoding and keys, then the sorted side's
+    penc, pexprs, benc, bexprs = ((renc, rexprs, lenc, lexprs) if build_left
+                                  else (lenc, lexprs, renc, rexprs))
+
     def body(ldb: KT.DeviceBatch, rdb: KT.DeviceBatch):
         coll = collective_for(n_dev)
         # skew-bounded row exchange: 4x the average per-peer capacity;
         # overflow is counted and the caller declines
         exchange = make_hash_exchange(n_dev, cap_factor=4, collective=coll)
+        pdb, bdb = (rdb, ldb) if build_left else (ldb, rdb)
 
-        lmix, lknull = key_mix(ldb, [l for l, _ in join_plan.on])
-        larr, lnulls = flatten_for_exchange(ldb, lmix)
-        larr["__kn"] = lknull  # the null-key marker travels with its row
-        holder["ici_bytes"] = holder.get("ici_bytes", 0) + n_dev * _nbytes(larr.values())
-        lgot, lvalid, ldropped = exchange(larr, ldb.row_valid, ("__k",))
-        probe = KT.DeviceBatch(ldb.schema, cols_of(lenc, lgot, lnulls), lvalid,
-                               int(lvalid.shape[0]))
-        pk, pknull = lgot["__k"], lgot["__kn"]
+        pmix, pknull = key_mix(pdb, pexprs)
+        parr, pnulls = flatten_for_exchange(pdb, pmix)
+        parr["__kn"] = pknull  # the null-key marker travels with its row
+        holder["ici_bytes"] = holder.get("ici_bytes", 0) + n_dev * _nbytes(parr.values())
+        pgot, pvalid, pdropped = exchange(parr, pdb.row_valid, ("__k",))
+        probe = KT.DeviceBatch(pdb.schema, cols_of(penc, pgot, pnulls), pvalid,
+                               int(pvalid.shape[0]))
+        pk, pknull = pgot["__k"], pgot["__kn"]
 
-        rmix, rknull = key_mix(rdb, [r for _, r in join_plan.on])
-        rarr, rnulls = flatten_for_exchange(rdb, rmix)
-        holder["ici_bytes"] += n_dev * _nbytes(rarr.values())
-        rgot, rvalid, rdropped = exchange(rarr, rdb.row_valid & ~rknull, ("__k",))
+        bmix, bknull = key_mix(bdb, bexprs)
+        barr, bnulls = flatten_for_exchange(bdb, bmix)
+        holder["ici_bytes"] += n_dev * _nbytes(barr.values())
+        bgot, bvalid, bdropped = exchange(barr, bdb.row_valid & ~bknull, ("__k",))
         # received build rows sorted by key, invalid rows last (keys are
         # non-negative, so the int64 maximum is a safe sentinel)
-        sort_key = torch.where(rvalid, rgot["__k"], torch.iinfo(torch.int64).max)
+        sort_key = torch.where(bvalid, bgot["__k"], torch.iinfo(torch.int64).max)
         order = torch.argsort(sort_key, stable=True)
         m = int(order.shape[0])
         bks = sort_key[order]
-        rvs = rvalid[order]
-        build = KT.DeviceBatch(rdb.schema, cols_of(renc, rgot, rnulls, order), rvs, m)
+        bvs = bvalid[order]
+        build = KT.DeviceBatch(bdb.schema, cols_of(benc, bgot, bnulls, order), bvs, m)
 
         # the unique-key probe; null-keyed probe rows never match
         pos = torch.clamp(torch.searchsorted(bks, pk), 0, m - 1)
-        found = (bks[pos] == pk) & rvs[pos] & lvalid & ~pknull
+        found = (bks[pos] == pk) & bvs[pos] & pvalid & ~pknull
         gathered = TE._gather_build_cols(build, pos, found)
+
+        def halves(gathered):
+            # a joined row's columns in join_plan.schema()'s order: left, right
+            return gathered + probe.cols if build_left else probe.cols + gathered
+
         if join_plan.filter is not None:
-            found = found & TE._pair_filter(join_plan, probe, build, probe.cols + gathered,
-                                            probe.row_valid, probe.n_rows)
+            left, right = (build, probe) if build_left else (probe, build)
+            found = found & TE._pair_filter(join_plan, left, right, halves(gathered), pvalid,
+                                            probe.n_rows)
             # a match the filter rejects leaves its probe row unmatched: NULL
             # build columns in a left join, as SQL and the host engines give
             gathered = [replace(g, null=g.null | ~found) for g in gathered]
         schema = join_plan.schema()
         if join_plan.how == "semi":
-            out_db = KT.DeviceBatch(schema, probe.cols, lvalid & found, probe.n_rows)
+            out_db = KT.DeviceBatch(schema, probe.cols, pvalid & found, probe.n_rows)
         elif join_plan.how == "anti":
-            out_db = KT.DeviceBatch(schema, probe.cols, lvalid & ~found, probe.n_rows)
+            out_db = KT.DeviceBatch(schema, probe.cols, pvalid & ~found, probe.n_rows)
         elif join_plan.how == "inner":
-            out_db = KT.DeviceBatch(schema, probe.cols + gathered, lvalid & found, probe.n_rows)
+            out_db = KT.DeviceBatch(schema, halves(gathered), pvalid & found, probe.n_rows)
         else:  # left
-            out_db = KT.DeviceBatch(schema, probe.cols + gathered, lvalid, probe.n_rows)
+            out_db = KT.DeviceBatch(schema, probe.cols + gathered, pvalid, probe.n_rows)
         # duplicate build keys break the unique-key probe. Equal keys land on
         # one shard, so adjacent equal keys after the sort find them all; the
         # count is summed over the mesh, so every shard declines together
-        dup = coll.all_sum(torch.sum((bks[1:] == bks[:-1]) & rvs[1:] & rvs[:-1]))
-        bad = (ldropped + rdropped + dup).reshape(1)
+        dup = coll.all_sum(torch.sum((bks[1:] == bks[:-1]) & bvs[1:] & bvs[:-1]))
+        bad = torch.stack([(pdropped + bdropped).to(torch.int64), dup.to(torch.int64)])
         return out_db, bad
 
     return body
@@ -678,12 +722,12 @@ def make_join_body(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.En
 
 def _fused_rows(engine, holder: dict, out: list) -> Optional[ColumnBatch]:
     """The program's rows on the host; None when its last output, the
-    mesh's unfusable count, is non-zero (a host sync)."""
+    mesh's unfusable counts, is non-zero (a host sync)."""
     with engine._wait():
         unfusable = int(out[-1].sum())
     if unfusable:
-        # rows past an exchange's capacity, or repeated build keys: the
-        # result is incomplete
+        # rows past an exchange's capacity, or repeated keys on the sorted
+        # side: the result is incomplete
         return None
     out_db = KT.device_batch_from_outputs(holder["meta"], list(out[:-1]), 0)
     return engine._fetch(out_db)

@@ -15,11 +15,13 @@ As the JAX engine does over its mesh, a final aggregate over a hash exchange
 of a partial aggregate runs as one fused program over the engine's mesh of
 ``mesh_devices`` shards (partial aggregate, exchange, final aggregate:
 ``engine/fused_exchange.py``; the mesh: ``parallel``), and so does a
-partitioned join over two exchanges whose build keys are unique; config
-``ballista.tpu.ici_shuffle=false`` turns both off. A fused program that
-declines by design (a zero-row or over-cap input, repeated build keys, rows
-past an exchange's capacity, a budget it exceeds, a shard that failed) is
-counted in ``op.FusedDeclined.count`` and the materialized exchange runs.
+partitioned join over two exchanges whose build keys are unique, or an inner
+one whose left keys are, run with the roles exchanged
+(``op.FusedJoin.swapped``); config ``ballista.tpu.ici_shuffle=false`` turns
+both off. A fused program that declines by design (a zero-row or over-cap
+input, repeated keys on the side it sorts, rows past an exchange's
+capacity, a budget it exceeds, a shard that failed) is counted in
+``op.FusedDeclined.count`` and the materialized exchange runs.
 An exchange the scheduler promoted onto the mesh (``IciExchangeExec``) or a
 chain it promoted whole (``MegastageExec``, ``engine/megastage.py``) is a
 contract instead: every decline raises ``IciDemoted`` naming its exchanges,
@@ -541,7 +543,7 @@ class TorchEngine(NumpyEngine):
 
         return self._fused_part(
             id(plan), part, "op.FusedIciJoin.count", ici_ids,
-            "collective join declined at runtime (skew overflow or non-unique build keys)",
+            "collective join declined at runtime (skew overflow or non-unique sorted keys)",
             lambda: FX.run_fused_join(self, plan, self.mesh_devices))
 
     # ---- gang-scheduled collectives across a mesh group ---------------------------
@@ -707,7 +709,7 @@ class TorchEngine(NumpyEngine):
                     run) -> Optional[ColumnBatch]:
         """Partition ``part`` of a fused program's result, run once per
         execution. A program that returns None declined by design (a zero-row
-        or over-cap input, repeated build keys, rows past an exchange's
+        or over-cap input, repeated sorted keys, rows past an exchange's
         capacity), as does one an injected ``ici.exchange`` fault or a failed
         shard stopped: ``op.FusedDeclined.count``. A stage the device cannot
         express falls back as an unfused stage would. A promoted exchange

@@ -541,5 +541,5 @@ def run_fused_join_multihost(join_plan: P.HashJoinExec, local_left: list, local_
     if rows is None:
         raise GangUnfusable(
             "fused join: duplicate build keys or skew overflow "
-            f"(count {int(out[-1][0])}); rerun with the materialized exchange")
+            f"(count {int(out[-1].sum())}); rerun with the materialized exchange")
     return rows

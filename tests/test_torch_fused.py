@@ -18,6 +18,11 @@ dispatch, against the JAX package, on the CPU.
   host build's encoding, metadata and every element, for TPC-H's inputs
   and synthetic stage outputs; the inputs only the host can encode take the
   host build; each build counted; a device-cache miss builds it again.
+* A partitioned join whose right keys repeat, against the host engine and
+  the JAX engine: an inner join over unique left keys runs fused with the
+  roles exchanged (a residual filter too); left, semi and anti joins
+  decline, and an inner join whose two sides repeat declines after one
+  program per input content.
 """
 import os
 import threading
@@ -41,6 +46,7 @@ from ballista_tpu.parallel.mesh import build_mesh
 from ballista_tpu_torch.client.context import BallistaContext
 from ballista_tpu_torch.config import BallistaConfig
 from ballista_tpu_torch.engine import fused_exchange as FX
+from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine import torch_engine as TE
 from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.ops import grouped_sums as GS
@@ -235,19 +241,34 @@ def jax_declines(monkeypatch):
     return count
 
 
-FUSED_KEYS = ("op.FusedIciExchange.count", "op.FusedIciJoin.count")
+def assert_fused_like_jax(tm: dict, jm: dict, jax_declined: int, swapped: int) -> None:
+    """The port's fused counts equal the JAX engine's, but for ``swapped``
+    joins: inner joins over repeated right keys and unique left keys, which
+    the JAX engine declines and the port runs with the roles exchanged (one
+    execution each, serving the join's 16 partitions)."""
+    assert tm.get("op.FusedJoin.swapped", 0.0) == swapped
+    assert tm.get("op.FusedIciExchange.count", 0.0) == jm.get("op.FusedIciExchange.count", 0.0)
+    assert (tm.get("op.FusedIciJoin.count", 0.0)
+            == jm.get("op.FusedIciJoin.count", 0.0) + 16 * swapped)
+    assert tm.get("op.FusedDeclined.count", 0.0) == jax_declined - swapped
+
+
+# (query, broadcast threshold) -> its joins the port runs with the roles exchanged
+SWAPPED = {("q12", 0): 1}
 
 
 @pytest.mark.parametrize("qname,threshold", [
     ("q1", 500_000), ("q3", 500_000), ("q4", 500_000), ("q5", 500_000), ("q6", 500_000),
-    ("q12", 500_000), ("q3", 0), ("q5", 0),
+    ("q12", 500_000), ("q3", 0), ("q5", 0), ("q12", 0),
 ])
 def test_fused_tpch_matches_jax_engine(ctxs, torch_oracle_tables, jax_declines, qname,
                                        threshold):
     """At the default threshold q1, q3, q4, q5 and q12 fuse their final
     aggregate (16 partitions), q6 (a global aggregate) nothing; at threshold
     0 q3 also fuses its 2 partitioned joins and q5 4 of its joins, while q5
-    declines 2 (their build keys repeat)."""
+    declines 2 (both sides' keys repeat). At threshold 0 q12's join (orders'
+    unique keys, filtered lineitem's repeated ones) runs with its roles
+    exchanged, where the JAX engine declines it."""
     tctx, jctx = ctxs[threshold]
     _cold_leaf_caches()
     got = tctx.sql(_sql(qname)).collect().to_pandas()
@@ -257,9 +278,7 @@ def test_fused_tpch_matches_jax_engine(ctxs, torch_oracle_tables, jax_declines, 
     ordered = qname in ORDERED
     assert_frames_match(got, want, ordered, f"{qname} vs jax")
     assert_frames_match(got, ORACLES[qname](torch_oracle_tables), ordered, qname)
-    for key in FUSED_KEYS:
-        assert tm.get(key, 0.0) == jm.get(key, 0.0), key
-    assert tm.get("op.FusedDeclined.count", 0.0) == jax_declines[0]
+    assert_fused_like_jax(tm, jm, jax_declines[0], SWAPPED.get((qname, threshold), 0))
     assert _host_ops(tm) == _host_ops(jm)
     assert tm.get("op.HostFallback.count", 0.0) == 0.0
     assert (tm.get("op.FusedIciExchange.count", 0.0) > 0) == (qname != "q6")
@@ -649,6 +668,143 @@ def test_device_cache_keys_name_the_device_and_ephemeral_scans_have_none(torch_t
     assert TE._leaf_cache_key(scan, 0) is not None
     scan.ephemeral = True
     assert TE._leaf_cache_key(scan, 0) is None
+
+
+# ---- a partitioned join whose right (build) keys repeat ---------------------------------------
+# a: unique keys, every 7th NULL; b: keys that repeat, every 11th NULL. b has
+# under twice a's rows, so the planner keeps a on the left
+REPEAT_A = pa.table({"k": pa.array([i if i % 7 else None for i in range(40)], pa.int64()),
+                     "s": pa.array([f"s{i % 5}" for i in range(40)]),
+                     "x": pa.array([i * 1.5 for i in range(40)], pa.float64())})
+REPEAT_B = pa.table({"k2": pa.array([(i * 3) % 45 if i % 11 else None for i in range(70)],
+                                    pa.int64()),
+                     "y": pa.array([i * 2 for i in range(70)], pa.int32())})
+SWAPPED_JOINS = {
+    "inner": "select * from a join b on a.k = b.k2",
+    "inner-with-residual-filter": "select * from a join b on a.k = b.k2 and a.x < b.y",
+}
+# (query, fused programs its first and its second execution run)
+DECLINED_JOINS = {
+    "both-sides-repeat": ("select * from b join b as c on b.k2 = c.k2", [1, 0]),
+    "left": ("select * from a left join b on a.k = b.k2", [0, 0]),
+    "semi": ("select * from a where k in (select k2 from b)", [0, 0]),
+    "anti": ("select * from a where not exists (select 1 from b where b.k2 = a.k)", [0, 0]),
+}
+
+
+@pytest.fixture(scope="module")
+def repeat_ctxs():
+    """(torch, host engine, JAX engine over one device) contexts over ``a``
+    and ``b`` in two partitions each, every join partitioned."""
+    t = BallistaContext.standalone(device="cpu")
+    h = BallistaContext.standalone(device="cpu", backend="numpy")
+    j = JaxContext.standalone(backend="jax")
+    for c in (t, h, j):
+        c.config.set("ballista.optimizer.broadcast_rows_threshold", 0)
+        c.register_arrow("a", REPEAT_A, partitions=2)
+        c.register_arrow("b", REPEAT_B, partitions=2)
+    make = j._get_engine
+
+    def one_device():
+        engine = make()
+        engine.mesh_devices = 1
+        return engine
+
+    j._get_engine = one_device
+    return t, h, j
+
+
+def _answers_agree(ctxs, sql):
+    """The port's rows for ``sql``, its metrics, and both references' rows
+    checked against them."""
+    t, h, j = ctxs
+    got = t.sql(sql).collect().to_pandas()
+    m = dict(t.last_engine_metrics)
+    assert_frames_match(got, h.sql(sql).collect().to_pandas(), False, "vs host engine")
+    assert_frames_match(got, j.sql(sql).collect().to_pandas(), False, "vs jax")
+    return got, m
+
+
+@pytest.mark.parametrize("case", sorted(SWAPPED_JOINS))
+def test_inner_join_over_repeated_right_keys_sorts_its_unique_left_side(repeat_ctxs,
+                                                                        monkeypatch, case):
+    """q12's shape: the fused join runs with the roles exchanged (the left
+    side sorted, the right probing it) instead of declining to the
+    materialized exchange; its output keeps the join's schema, left columns
+    first; NULL keys on either side never match; a residual filter is
+    evaluated over the (left, right) pair as the join's schema binds it."""
+    joins = []
+    real = FX.run_fused_join
+
+    def recording(engine, join_plan, n_dev):
+        out = real(engine, join_plan, n_dev)
+        joins.append((join_plan, out))
+        return out
+
+    monkeypatch.setattr(FX, "run_fused_join", recording)
+    _cold_leaf_caches()
+    got, m = _answers_agree(repeat_ctxs, SWAPPED_JOINS[case])
+    assert m.get("op.FusedJoin.swapped") == 1.0
+    assert m.get("op.FusedIciJoin.count") == 16.0
+    assert "op.FusedDeclined.count" not in m and "op.RepartitionExec.output_rows" not in m
+    [(join_plan, out)] = joins
+    want = [(f.name, f.dtype) for f in join_plan.schema()]
+    assert [(f.name, f.dtype) for f in out[0].schema] == want
+    assert [n for n, _ in want] == ["a.k", "a.s", "a.x", "b.k2", "b.y"]
+    lk, rk = got.iloc[:, 0], got.iloc[:, 3]
+    assert len(got) > 0 and lk.notna().all() and (lk == rk).all()
+
+
+@pytest.mark.parametrize("case", sorted(DECLINED_JOINS))
+def test_join_over_repeated_right_keys_declines_where_the_swap_does_not_fit(repeat_ctxs,
+                                                                            monkeypatch, case):
+    """Left, semi and anti joins over repeated right keys decline before any
+    program, as an inner join whose two sides both repeat does once its
+    first program has read the left side's keys: a second execution over
+    the same content runs no fused program. The materialized exchange
+    answers each time."""
+    sql, want_programs = DECLINED_JOINS[case]
+    programs = []
+    real = FX.make_join_dev_fn
+
+    def counting(*args, **kw):
+        programs.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(FX, "make_join_dev_fn", counting)
+    _cold_leaf_caches()
+    ran = []
+    for _run in ("first", "second"):
+        programs.clear()
+        _got, m = _answers_agree(repeat_ctxs, sql)
+        ran.append(len(programs))
+        assert m.get("op.FusedDeclined.count") == 1.0
+        assert "op.FusedJoin.swapped" not in m and "op.FusedIciJoin.count" not in m
+        assert m.get("op.RepartitionExec.output_rows", 0.0) > 0
+    assert ran == want_programs
+
+
+def test_fused_join_estimate_prices_the_roles_as_run(repeat_ctxs):
+    """The columns gathered onto each probing row are priced on the side
+    that probes: with the roles exchanged, the left columns onto each right
+    row, so a large sorted left side costs its exchange and sort alone."""
+    from ballista_tpu_torch.plan.optimizer import optimize
+    from ballista_tpu_torch.plan.physical_planner import PhysicalPlanner
+    from ballista_tpu_torch.sql.parser import parse_sql
+    from ballista_tpu_torch.sql.planner import SqlPlanner
+
+    t = repeat_ctxs[0]
+    plan = SqlPlanner(t.catalog.schemas()).plan(parse_sql(SWAPPED_JOINS["inner"]))
+    phys = PhysicalPlanner(t.catalog, t.config).plan(optimize(plan, t.catalog))
+    [join_plan] = [n for n in P.walk_physical(phys) if isinstance(n, P.HashJoinExec)]
+    lenc = KT.encode_host_batch(TE.ColumnBatch.from_arrow(pa.concat_tables([REPEAT_A] * 50)))
+    renc = KT.encode_host_batch(TE.ColumnBatch.from_arrow(REPEAT_B))
+    as_planned = FX.join_estimate(join_plan, lenc, renc, 1, 1)(0)
+    swapped = FX.join_estimate(join_plan, lenc, renc, 1, 1, build_left=True)(0)
+    right_w = MM.row_data_bytes(join_plan.right.schema()) + 1
+    left_w = MM.row_data_bytes(join_plan.left.schema()) + 1
+    assert lenc.n_pad == 2048 and renc.n_pad == 128
+    assert as_planned - swapped == lenc.n_pad * right_w - renc.n_pad * left_w > 0
 
 
 # ---- tiny-stage dispatch -------------------------------------------------------------------

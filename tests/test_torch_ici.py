@@ -5,7 +5,9 @@ the port's scheduler promotes onto it, against the JAX package on the CPU.
   (``force_mesh_shards(8)``) against the JAX engine over the conftest's
   8-device mesh: TPC-H q1, q3, q5 and q12 with every join partitioned, rows
   byte for byte, the same ``op.FusedIciExchange/FusedIciJoin/FusedDeclined``
-  counts, no host fallback.
+  counts but for q12's join, which the port runs with its roles exchanged
+  (``op.FusedJoin.swapped``) where the JAX engine declines it, no host
+  fallback.
 * A shard that fails inside the program: a counted decline (the
   materialized exchange runs, rows exact) for an exchange the engine fused
   by its own choice, ``IciDemoted`` for a promoted one.
@@ -44,7 +46,7 @@ from ballista_tpu_torch.sql.parser import parse_sql
 from ballista_tpu_torch.sql.planner import SqlPlanner
 
 from test_torch_data import torch_tpch_dir  # noqa: F401
-from test_torch_fused import FUSED_KEYS, _sql, jax_declines  # noqa: F401
+from test_torch_fused import _sql, assert_fused_like_jax, jax_declines  # noqa: F401
 from test_torch_joins import _cold_leaf_caches, _host_ops
 
 pytestmark = pytest.mark.ici
@@ -79,8 +81,10 @@ def mesh_ctxs(mesh8, torch_tpch_dir):
 def test_fused_programs_over_eight_shards_match_the_jax_engine(mesh_ctxs, jax_declines,
                                                                qname):
     """q1 fuses its final aggregate (16 partitions), q3 that and its 2
-    partitioned joins, q5 4 of its joins (2 decline: their build keys
-    repeat), q12 its aggregate (its join declines)."""
+    partitioned joins, q5 4 of its joins (2 decline: both sides' keys
+    repeat), q12 its aggregate and its join, with the roles exchanged
+    (lineitem's order keys repeat, orders' are unique), where the JAX engine
+    declines the join."""
     tctx, jctx = mesh_ctxs
     _cold_leaf_caches()
     got = tctx.sql(_sql(qname)).collect().to_pandas()
@@ -88,9 +92,7 @@ def test_fused_programs_over_eight_shards_match_the_jax_engine(mesh_ctxs, jax_de
     want = jctx.sql(_sql(qname)).collect().to_pandas()
     jm = jctx.last_engine_metrics
     pd.testing.assert_frame_equal(got, want)
-    for key in FUSED_KEYS:
-        assert tm.get(key, 0.0) == jm.get(key, 0.0), key
-    assert tm.get("op.FusedDeclined.count", 0.0) == jax_declines[0]
+    assert_fused_like_jax(tm, jm, jax_declines[0], int(qname == "q12"))
     assert tm.get("op.FusedIciExchange.count", 0.0) == 16
     assert _host_ops(tm) == _host_ops(jm)
     assert tm.get("op.HostFallback.count", 0.0) == 0.0
