@@ -17,16 +17,12 @@ The shards' outputs concatenate in shard order, as the JAX program's
 ``P(axis)`` outputs do.
 
 The fused input (everything below the partial aggregate, or below each side
-of the join) is materialized once and padded to equal power-of-two shards.
-Where its partitions ran as device stages, their outputs stay on the device
-and are compacted and concatenated there, with the encoding's metadata the
-host build would give (``KT.encode_device_batches``); otherwise they are
-concatenated and encoded on the host and copied to the shards' devices. Its
-encoding and each shard's device tensors (on that shard's device) are cached
-under a content key: a warm query reads its input from the devices and runs
-one program. The JAX
-package's compile cache and compile-service path have no counterpart (eager
-PyTorch compiles nothing).
+of the join) is materialized once, padded to equal power-of-two shards, and
+built on the device where its partitions ran as device stages, else on the
+host (``fused_input``). ``engine/leaf_cache.py`` caches it under a content
+key: a warm query reads its input from the devices and runs one program. The
+JAX package's compile cache and compile-service path have no counterpart
+(eager PyTorch compiles nothing).
 
 The per-shard bodies (``make_aggregate_dev_fn``, ``make_join_dev_fn``),
 their estimates and ``_run_mesh`` also run a mesh group's programs
@@ -50,9 +46,9 @@ import torch
 
 from ballista_tpu_torch.config import (
     BALLISTA_TPU_FUSE_INPUT_MAX_ROWS, BALLISTA_TPU_FUSED_INPUT_ON_HOST,
-    BALLISTA_TPU_PIN_DEVICE_CACHE,
 )
 from ballista_tpu_torch.engine import compile_service as CS
+from ballista_tpu_torch.engine import leaf_cache as LC
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine import torch_engine as TE
 from ballista_tpu_torch.ops import grouped_sums as GS
@@ -90,61 +86,12 @@ def _input_content_key(child: P.PhysicalPlan, n_dev: int) -> Optional[tuple]:
     return (child.fingerprint(), tuple(leaf_keys), n_dev, KT.NATIVE_DTYPES)
 
 
-def _build_sharded_input(engine, child: P.PhysicalPlan, n_dev: int) -> KT.EncodedBatch:
-    """Materialize, concatenate and encode the fused input on the host,
-    padded to ``n_dev`` equal power-of-two shards. Its partitions run through
-    the engine's own stages, or on host kernels with
-    ``ballista.tpu.fused_input_on_host``. Raises _EmptyInput for zero rows or
-    past ``ballista.tpu.fuse_input_max_rows`` (checked before the concat)."""
-    with engine._phase("ballista.fused.input"):
-        return _host_build(engine, _run_partitions(engine, child, None), n_dev)
-
-
-def _build_input(engine, child: P.PhysicalPlan, mesh: list) -> tuple:
-    """(encoding, each shard's device tensors or None) of the fused input.
-    Where every partition came back from a device stage, the input is built
-    from the stages' outputs on the device (``KT.encode_device_batches``:
-    the encoding the host build would give, its arrays storage-free
-    stand-ins) and nothing is fetched; otherwise, or where a column's
-    encoding only the host can make, the host build (shards None). Counted
-    in ``op.FusedInput.device_builds`` or ``op.FusedInput.host_builds``."""
-    with engine._phase("ballista.fused.input"):
-        spans: list = []
-        parts = _run_partitions(engine, child, spans)
-        if parts and all(isinstance(p, KT.DeviceBatch) for p in parts):
-            cap = int(engine.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
-            with engine._phase("ballista.fused.device_build"):
-                got = KT.encode_device_batches(parts, len(mesh), engine._wait, cap)
-            if got is not None:
-                counts, enc, arrays = got
-                for span, rows in zip(spans, counts):
-                    if span is not None:
-                        span["attrs"]["rows"] = rows
-                if enc is None:
-                    raise _EmptyInput()
-                engine._metric("op.FusedInput.device_builds", 1.0)
-                return enc, [[a.to(dev) for a in shard]
-                             for shard, dev in zip(split_rows(arrays, len(mesh)), mesh)]
-        spans = iter(spans)
-        batches = []
-        for p in parts:
-            if isinstance(p, KT.DeviceBatch):
-                p = engine._fetch(p)
-                span = next(spans)
-                if span is not None:
-                    span["attrs"]["rows"] = p.num_rows
-            batches.append(p)
-        return _host_build(engine, batches, len(mesh)), None
-
-
-def _run_partitions(engine, child: P.PhysicalPlan, unfetched: Optional[list]) -> list:
+def _materialize(engine, child: P.PhysicalPlan, unfetched: Optional[list], cap: int) -> list:
     """Each partition of the fused input, through the engine's stages (with
-    ``unfetched``, a device stage's output left on the device: see
-    ``TorchEngine._exec``), or on host kernels with
-    ``ballista.tpu.fused_input_on_host``. Raises _EmptyInput past
-    ``ballista.tpu.fuse_input_max_rows`` host rows."""
+    ``unfetched``, a device stage's output left on the device:
+    ``TorchEngine._exec``) or on host kernels (``fused_input_on_host``).
+    Raises _EmptyInput past ``cap`` host rows."""
     on_host = bool(engine.config.get(BALLISTA_TPU_FUSED_INPUT_ON_HOST))
-    cap = int(engine.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
     if on_host:
         engine._host_only += 1
     try:
@@ -163,109 +110,57 @@ def _run_partitions(engine, child: P.PhysicalPlan, unfetched: Optional[list]) ->
             engine._host_only -= 1
 
 
-def _host_build(engine, batches: list, n_dev: int) -> KT.EncodedBatch:
-    """The host build: ``batches`` concatenated and encoded for ``n_dev``
-    shards. Raises _EmptyInput for zero rows or past the row cap."""
-    cap = int(engine.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
+def _encode_input(engine, parts: list, spans: Optional[list], mesh: list, cap: int) -> tuple:
+    """(encoding, each shard's device tensors or None) of the fused input
+    from its partitions; ``spans`` (of the parts left on the device) get
+    their rows. Where every part is on the device, built there
+    (``KT.encode_device_batches``, the host build's metadata over stand-ins;
+    ``op.FusedInput.device_builds``); otherwise, or where only the host can
+    encode a column, fetched and encoded on the host (shards None;
+    ``.host_builds``). Raises _EmptyInput for zero rows or past ``cap``."""
+    n_dev = len(mesh)
+    got = None
+    if parts and all(isinstance(p, KT.DeviceBatch) for p in parts):
+        with engine._phase("ballista.fused.device_build"):
+            got = KT.encode_device_batches(parts, n_dev, engine._wait, cap)
+    if got is None:
+        batches = [engine._fetch(p) if isinstance(p, KT.DeviceBatch) else p for p in parts]
+        counts = [b.num_rows for b, p in zip(batches, parts) if isinstance(p, KT.DeviceBatch)]
+    else:
+        counts, enc, arrays = got
+    for span, rows in zip(spans or (), counts):
+        if span is not None:
+            span["attrs"]["rows"] = rows
+    if got is not None:
+        if enc is None:
+            raise _EmptyInput()
+        engine._metric("op.FusedInput.device_builds", 1.0)
+        return enc, [[a.to(dev) for a in shard]
+                     for shard, dev in zip(split_rows(arrays, n_dev), mesh)]
     big = ColumnBatch.concat(batches)
     if big.num_rows == 0 or (cap and big.num_rows > cap):
         raise _EmptyInput()
     engine._metric("op.FusedInput.host_builds", 1.0)
-    return _encode_sharded(engine, big, n_dev)
-
-
-def _encode_sharded(engine, batch: ColumnBatch, n_dev: int) -> KT.EncodedBatch:
-    per_dev = KT.bucket_size(max(1, -(-batch.num_rows // n_dev)))
     with engine._phase("ballista.leaf.encode", "op.HostEncode"):
-        return KT.encode_host_batch(batch, pad=per_dev * n_dev)
+        return KT.encode_host_batch(big, pad=KT.shard_pad(big.num_rows, n_dev)), None
 
 
-def host_sharded_input(engine, child: P.PhysicalPlan, n_dev: int) -> KT.EncodedBatch:
-    """The fused input's host encoding (a megastage's, whose program copies
-    its input itself), read through the encode cache under the key
-    ``_sharded_input`` uses. An entry ``_sharded_input`` built on the device
-    holds no arrays: it is replaced by the host build."""
-    key = _input_content_key(child, n_dev)
-    if key is None:
-        return _build_sharded_input(engine, child, n_dev)
+def fused_input(engine, child: P.PhysicalPlan, mesh: list, device_ok: bool = True) -> tuple:
+    """(encoding, each shard's device tensors on ``mesh``) of the fused
+    input ``child``, through the leaf caches (``leaf_cache.fused_input``).
+    With ``device_ok`` False (a megastage, whose program copies its input
+    itself) the partitions are fetched as they run and the host encoding
+    alone comes back (shards None). Raises _EmptyInput for zero rows or past
+    ``ballista.tpu.fuse_input_max_rows``."""
     def build():
-        return _build_sharded_input(engine, child, n_dev)
+        cap = int(engine.config.get(BALLISTA_TPU_FUSE_INPUT_MAX_ROWS) or 0)
+        spans = [] if device_ok else None
+        with engine._phase("ballista.fused.input"):
+            return _encode_input(engine, _materialize(engine, child, spans, cap), spans, mesh,
+                                 cap)
 
-    enc = engine._leaf_lookup(TE._ENC_CACHE, ("fused_in", key), build)
-    if TE.stand_ins(enc):
-        enc = build()
-        engine._leaf_put(TE._ENC_CACHE, ("fused_in", key), enc)
-    return enc
-
-
-def _on_mesh(engine, enc: KT.EncodedBatch, mesh: list, cache_key: Optional[tuple]) -> list:
-    """Shard ``i``'s arrays on ``mesh[i]``, through the device cache under
-    ``cache_key + (i,)`` unless ``cache_key`` is None."""
-    with engine._phase("ballista.leaf.h2d"):
-        return [engine._cached_on_device(None if cache_key is None else cache_key + (i,),
-                                         arrays, dev)
-                for i, (arrays, dev) in enumerate(zip(split_rows(enc.arrays, len(mesh)), mesh))]
-
-
-def _sharded_input(engine, child: P.PhysicalPlan, mesh: list):
-    """(EncodedBatch, each shard's device tensors) of the fused input, read
-    through the content-keyed encode and device caches when its key exists,
-    so a warm fused run is device execution only. An input built on the
-    device puts its shards into the device cache as they are; a device-cache
-    miss of one is built again, never copied from its stand-ins. With
-    ``ballista.tpu.pin_device_cache`` each shard's device copy is pinned
-    (never evicted); one pin per input plan and shard, so a table registered
-    again releases the copy of its old content."""
-    n_dev = len(mesh)
-    key = _input_content_key(child, n_dev)
-    if key is None:
-        enc, shards = _build_input(engine, child, mesh)
-        return enc, shards if shards is not None else _on_mesh(engine, enc, mesh, None)
-    built: list = []  # the shards of a build on the device this call made
-
-    def build():
-        enc, shards = _build_input(engine, child, mesh)
-        if shards is not None:
-            built.append(shards)
-        return enc
-
-    enc = engine._leaf_lookup(TE._ENC_CACHE, ("fused_in", key), build)
-    if TE.stand_ins(enc):
-        def shard(i):
-            if not built:
-                # a device-cache miss of an input built on the device
-                again = build()
-                if not built:  # built on the host this time
-                    built.append(_on_mesh(engine, again, mesh, None))
-            engine._room_for(_nbytes(built[0][i]))
-            return built[0][i]
-
-        shards = [engine._leaf_lookup(TE._DEV_CACHE, engine._dev_key(("fused_dev", key, i), dev),
-                                      lambda i=i: shard(i))
-                  for i, dev in enumerate(mesh)]
-    else:
-        shards = _on_mesh(engine, enc, mesh, ("fused_dev", key))
-    pin = engine.config.get(BALLISTA_TPU_PIN_DEVICE_CACHE)
-    for i, dev in enumerate(mesh):
-        dev_key = engine._dev_key(("fused_dev", key, i), dev)
-        slot = (child.fingerprint(), n_dev, str(dev), i)
-        if not pin:
-            # pinning off (perhaps after being on): release this input's pin
-            old = _PINNED_DEV_KEYS.pop(slot, None)
-            if old is not None:
-                TE._DEV_CACHE.unpin(old)
-            continue
-        old = _PINNED_DEV_KEYS.get(slot)
-        if old is not None and old != dev_key:
-            TE._DEV_CACHE.unpin(old)
-            TE._DEV_CACHE.invalidate(old)
-        _PINNED_DEV_KEYS[slot] = dev_key
-        TE._DEV_CACHE.pin(dev_key)
-    return enc, shards
-
-
-# (input plan fingerprint, width, device, shard) -> its pinned device-cache key
-_PINNED_DEV_KEYS: dict = {}
+    return LC.fused_input(engine, _input_content_key(child, len(mesh)), child.fingerprint(),
+                          mesh, build, device_ok)
 
 
 def _nbytes(tensors) -> int:
@@ -393,7 +288,7 @@ def run_fused_aggregate(engine, final_plan: P.HashAggregateExec,
 
     mesh = build_mesh(n_dev, engine.device)
     try:
-        enc, shard_args = _sharded_input(engine, partial_plan.input, mesh)
+        enc, shard_args = fused_input(engine, partial_plan.input, mesh)
     except _EmptyInput:
         return None
     holders = [{} for _ in mesh]
@@ -477,14 +372,13 @@ def build_side_encoding(engine, join_plan: P.HashJoinExec, n_dev: int) -> KT.Enc
             [engine._exec(rrep.input, i) for i in range(rrep.input.output_partitions())])
         bkey, bvalid = KNP.combined_key([evaluate(r, rbig) for _, r in join_plan.on])
         bk = bkey[bvalid]
-        enc = _encode_sharded(engine, rbig, n_dev)
+        with engine._phase("ballista.leaf.encode", "op.HostEncode"):
+            enc = KT.encode_host_batch(rbig, pad=KT.shard_pad(rbig.num_rows, n_dev))
         enc.build_unique = len(np.unique(bk)) == len(bk)
         return enc
 
-    rkey = _input_content_key(rrep.input, n_dev)
-    if rkey is None:
-        return build()
-    return engine._leaf_lookup(TE._ENC_CACHE, ("fused_jb", rkey, _on_sig(join_plan)), build)
+    return LC.build_side(engine, _input_content_key(rrep.input, n_dev), _on_sig(join_plan),
+                         build)
 
 
 def _on_sig(join_plan: P.HashJoinExec, side: int = 1) -> tuple:
@@ -527,7 +421,7 @@ def run_fused_join(engine, join_plan: P.HashJoinExec, n_dev: int):
         return None
     mesh = build_mesh(n_dev, engine.device)
     try:
-        lenc, ldev = _sharded_input(engine, join_plan.left.input, mesh)
+        lenc, ldev = fused_input(engine, join_plan.left.input, mesh)
     except _EmptyInput:
         return None
     renc = build_side_encoding(engine, join_plan, n_dev)
@@ -539,8 +433,7 @@ def run_fused_join(engine, join_plan: P.HashJoinExec, n_dev: int):
         if not vars(lenc).get("keys_unique", {}).get(lsig, True):
             return None
     rkey = _input_content_key(join_plan.right.input, n_dev)
-    rdev = _on_mesh(engine, renc, mesh,
-                    None if rkey is None else ("fused_jb_dev", rkey, _on_sig(join_plan)))
+    rdev = LC.build_side_shards(engine, renc, mesh, rkey, _on_sig(join_plan))
 
     holders = [{} for _ in mesh]
     fns = [make_join_dev_fn(join_plan, lenc, renc, n_dev, h, build_left) for h in holders]

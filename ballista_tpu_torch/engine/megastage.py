@@ -77,9 +77,10 @@ def run_megastage(engine, ms: P.MegastageExec, n_dev: int) -> Optional[list[Colu
         return None
     final_plan, agg_ex, partial_plan, join_plan = parts
     lrep = join_plan.left
+    mesh = build_mesh(n_dev, engine.device)
     # inputs: the host encodings are cached, the device copies never are
     try:
-        lenc = FX.host_sharded_input(engine, lrep.input, n_dev)
+        lenc, _ = FX.fused_input(engine, lrep.input, mesh, device_ok=False)
     except FX._EmptyInput:
         return None
     renc = FX.build_side_encoding(engine, join_plan, n_dev)
@@ -98,7 +99,6 @@ def run_megastage(engine, ms: P.MegastageExec, n_dev: int) -> Optional[list[Colu
                      "%s budget", MM.fmt_bytes(est), MM.fmt_bytes(budget))
             return None
 
-    mesh = build_mesh(n_dev, engine.device)
     n_boundaries = sum(isinstance(n, P.IciExchangeExec) for n in P.walk_physical(ms))
     holders = [{} for _ in mesh]
     fns = [make_megastage_dev_fn(final_plan, partial_plan, join_plan, lenc, renc, n_dev, h)

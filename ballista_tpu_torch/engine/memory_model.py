@@ -69,7 +69,7 @@ GiB = 1 << 30
 DEFAULT_BUDGET_FRACTION = 0.85
 
 # share of the device budget the leaf caches' device copies may hold
-# (``torch_engine._DEV_CACHE``, sized on a CUDA engine's first use): a warm
+# (``leaf_cache.DEV``, sized on a CUDA engine's first use): a warm
 # TPC-H SF10 working set (about 16 GB) fits it with room, and a stage is
 # admitted against the budget less what the cache holds
 # (:func:`admission_budget_bytes`), so it keeps at least the rest

@@ -33,13 +33,11 @@ input partitions, enters the program with its peers and emits its slice
 under output partition == its process id; nothing declines locally (a
 refusal the members share raises ``GangUnfusable``, any other failure
 raises, and the scheduler restarts the stage). Leaf encodings and their
-device copies are cached across queries under content keys (scan files and
-their stamps, in-memory batch ids, the dtype policy; the device copies also
-under the engine's device), so a warm query re-reads no scan it has seen;
-``clear_caches()`` empties them. With ``ballista.tpu.min_device_rows`` set, a
-stage whose leaves hold fewer rows runs on the host kernels
-(``op.HostTinyStage.count``), a route the configuration chose and not a
-fallback.
+device copies are cached across queries under content keys
+(``engine/leaf_cache.py``), so a warm query re-reads no scan it has seen.
+With ``ballista.tpu.min_device_rows`` set, a stage whose leaves hold fewer
+rows runs on the host kernels (``op.HostTinyStage.count``), a route the
+configuration chose and not a fallback.
 
 The memory governor (``engine/memory_model.py``) gives a CUDA engine a
 device budget: ``ballista.engine.hbm_budget_bytes``, or 0.85 of the card's
@@ -50,9 +48,8 @@ time (``op.PagedJoin.count``, ``op.PagedJoin.passes``), as a join the
 client's admission flagged ``paged`` always is. A fused exchange whose
 estimate exceeds the budget is declined. Each stage records its estimate
 (``op.HbmEst.max_bytes``) and, on the card, its measured peak
-(``op.HbmPeak.max_bytes``). The leaf caches' device copies hold up to
-``memory_model.DEVICE_CACHE_SHARE`` of the budget, and a stage or fused
-program is admitted against the budget less what they hold on its card.
+(``op.HbmPeak.max_bytes``). A stage or fused program is admitted against
+the budget less the leaf caches' device copies on its card.
 
 With a trace context (``trace_ctx``), the engine records the JAX engine's
 spans: ``CompiledStage`` per device stage (its rows, ``execute_ms``, the
@@ -68,8 +65,7 @@ estimate, device arguments, memory accounting, dispatch, waits and fetch,
 leaf encodes and copies), and its time and count go to ``op_metrics``
 (``op.DeviceDispatch``, ``op.DeviceWait``, ``op.HostEncode``, ...; the list
 is in ``docs/observability.md``). A stage is a child of the operator that
-runs it, so that operator's exclusive time leaves the stage out. The leaf
-caches' lookups count in ``op.LeafCache.hits`` and ``misses``, and an
+runs it, so that operator's exclusive time leaves the stage out. An
 execution's grouped_sums record in ``op.GroupedSums.*``.
 
 PyTorch runs eagerly, so a stage program is traced anew on every call: there
@@ -99,7 +95,6 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-import threading
 import time
 from dataclasses import replace
 from typing import Optional
@@ -116,6 +111,7 @@ from ballista_tpu_torch.config import (
     BALLISTA_TPU_NATIVE_DTYPES, BALLISTA_TPU_STREAM_DEVICE_ROWS, BallistaConfig,
 )
 from ballista_tpu_torch.engine import compile_service as CS
+from ballista_tpu_torch.engine import leaf_cache as LC
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine.numpy_engine import NumpyEngine
 from ballista_tpu_torch.errors import ExecutionError, IciDemoted
@@ -132,73 +128,11 @@ from ballista_tpu_torch.plan.expr import (
     Like, Lit, Not, WindowFunc, unalias, walk,
 )
 from ballista_tpu_torch.plan.schema import DataType
-from ballista_tpu_torch.utils.cache import LoadingCache
 
 log = logging.getLogger("ballista.engine")
 
-# module-level caches: hot leaf encodings (host) and their device copies
-# survive across queries and engines. Their keys name content (scan files
-# with their stamps, in-memory batch ids, the dtype policy), never object
-# ids; device keys also name the engine's device (_dev_key), so a CPU and a
-# CUDA engine in one process never share a tensor. On the CPU a cached
-# tensor shares memory with its cached host array, and on CUDA every later
-# query reads it: no stage may write a leaf tensor in place.
-#
-# On CUDA an encoding whose tensors are in the device cache keeps only its
-# metadata on the host: its arrays become storage-free stand-ins
-# (``stand_ins``), weighed as nothing and never evicted for weight, as a
-# fused input built on the device is (fused_exchange). When the device copy
-# leaves the cache, its stand-in goes too (``_device_evicted``), so the next
-# lookup encodes again. The device cache is sized on the first CUDA use, to
-# ``memory_model.DEVICE_CACHE_SHARE`` of the engine's device budget
-# (``_size_device_cache``), and a stage is admitted against the budget less
-# what it holds on the card (``_stage_budget``).
-def stand_ins(enc: KT.EncodedBatch) -> bool:
-    """Whether the encoding's arrays are storage-free stand-ins."""
-    return bool(enc.arrays) and isinstance(enc.arrays[-1], torch.Tensor)
-
-
-def _with_stand_ins(enc: KT.EncodedBatch) -> KT.EncodedBatch:
-    """The encoding with its host arrays replaced by ``meta`` tensors of the
-    same shapes and dtypes."""
-    return replace(enc, arrays=[
-        torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype, device="meta")
-        for a in enc.arrays])
-
-
-def _device_evicted(key: tuple, _tensors) -> None:
-    """A device copy left the cache (evicted, invalidated or cleared): the
-    host entry standing in for it goes too. A scan leaf's host key is its
-    content key; a fused input's shard ``("fused_dev", k, i)`` stands for
-    the input ``("fused_in", k)``."""
-    content = key[0]
-    host = ("fused_in", content[1]) if content[0] == "fused_dev" else content
-    _ENC_CACHE.invalidate_if(host, stand_ins)
-
-
-_ENC_CACHE: LoadingCache = LoadingCache(
-    capacity=4 * 1024**3,
-    weigher=lambda enc: sum(a.nbytes for a in enc.arrays if isinstance(a, np.ndarray)),
-    keep_weightless=True,
-)
-_DEV_CACHE: LoadingCache = LoadingCache(
-    # until a CUDA engine sizes it from its card (_size_device_cache)
-    capacity=8 * 1024**3, weigher=lambda ts: sum(t.numel() * t.element_size() for t in ts),
-    eviction_listener=_device_evicted,
-)
-_DEV_CACHE_SIZED = False
-# depth of leaf-cache calls on this thread: evictions count once, in the
-# outermost (a loader may look up other leaves)
-_LOOKUP = threading.local()
-
-
-def clear_caches() -> None:
-    _ENC_CACHE.clear()
-    _DEV_CACHE.clear()
-
-
-def _evicted_bytes() -> float:
-    return _ENC_CACHE.evicted_weight + _DEV_CACHE.evicted_weight
+# leaf_cache's objects, read by portbench/deployments/standalone{,_resident}.py
+_ENC_CACHE, _DEV_CACHE, clear_caches = LC.ENC, LC.DEV, LC.clear
 
 
 def resolve_device(device: Optional[str]) -> str:
@@ -418,74 +352,6 @@ class TorchEngine(NumpyEngine):
         if self.device.type != "cuda":
             return contextlib.nullcontext()
         return self._phase("ballista.device.wait", "op.DeviceWait")
-
-    def _leaf_lookup(self, cache: LoadingCache, key, load):
-        """``cache.get_with(key, load)``, counted in ``op.LeafCache.hits``
-        or ``op.LeafCache.misses`` as the cache counts it (a load that
-        another thread made for this key is a hit), and for the device
-        cache in ``op.LeafCache.device_hits`` or ``device_misses`` too."""
-        loaded = []
-
-        def loader():
-            loaded.append(True)
-            return load()
-
-        on_device = cache is _DEV_CACHE
-        if on_device:
-            self._size_device_cache()
-        value = self._leaf_call(lambda: cache.get_with(key, loader))
-        self._metric("op.LeafCache.misses" if loaded else "op.LeafCache.hits", 1.0)
-        if on_device:
-            self._metric("op.LeafCache.device_misses" if loaded else "op.LeafCache.device_hits",
-                         1.0)
-        return value
-
-    def _leaf_put(self, cache: LoadingCache, key, value) -> None:
-        self._leaf_call(lambda: cache.put(key, value))
-
-    def _leaf_call(self, call):
-        """``call()`` of a leaf cache, the bytes either cache evicted
-        meanwhile added to ``op.LeafCache.evicted_bytes`` (in the outermost
-        call on this thread only: a loader's own lookups are inside it)."""
-        depth = getattr(_LOOKUP, "depth", 0)
-        before = _evicted_bytes() if depth == 0 else 0.0
-        _LOOKUP.depth = depth + 1
-        try:
-            return call()
-        finally:
-            _LOOKUP.depth = depth
-            if depth == 0:
-                evicted = _evicted_bytes() - before
-                if evicted:
-                    self._metric("op.LeafCache.evicted_bytes", evicted)
-
-    def _size_device_cache(self) -> None:
-        """On a CUDA engine: the device cache's capacity, resolved once in
-        the process from this engine's device budget
-        (``memory_model.device_cache_bytes``; the card's detected budget
-        when the governor is off), counted in
-        ``op.LeafCache.device_capacity.max_bytes``."""
-        global _DEV_CACHE_SIZED
-        if self.device.type != "cuda":
-            return
-        if not _DEV_CACHE_SIZED:
-            budget = self._hbm_budget() or MM.detect_device_budget_bytes(self.device)
-            _DEV_CACHE.capacity = MM.device_cache_bytes(budget)
-            _DEV_CACHE_SIZED = True
-        self._metric_max("op.LeafCache.device_capacity.max_bytes", _DEV_CACHE.capacity)
-
-    def _room_for(self, nbytes: float) -> None:
-        """Evicts device copies, least recently used first, until ``nbytes``
-        more fit the device cache: before a copy allocates, so the memory
-        is free first (the range ``ballista.leaf.evict``)."""
-        if _DEV_CACHE.total_weight() + nbytes > _DEV_CACHE.capacity:
-            with self._phase("ballista.leaf.evict"):
-                _DEV_CACHE.evict_for(nbytes)
-
-    def _dev_key(self, key: tuple, device=None) -> tuple:
-        """A device-cache key: the content key with its device (default the
-        engine's) and the dtype policy."""
-        return (key, str(device or self.device), KT.NATIVE_DTYPES)
 
     def _min_device_rows(self) -> int:
         return int(self.config.get(BALLISTA_TPU_MIN_DEVICE_ROWS) or 0)
@@ -856,19 +722,13 @@ class TorchEngine(NumpyEngine):
 
     def _stage_budget(self) -> int:
         """The budget a stage or fused program is admitted against: the
-        device budget less the leaf caches' device copies on this engine's
-        card, pinned ones included (``memory_model.admission_budget_bytes``).
-        On the CPU cached tensors share host memory: the budget as it is."""
+        device budget less the leaf caches' copies on this engine's card
+        (``leaf_cache.resident_bytes``; none on the CPU, whose cached tensors
+        share host memory)."""
         budget = self._hbm_budget()
         if budget <= 0:
             return budget
-        return MM.admission_budget_bytes(budget, self._cache_resident_bytes())
-
-    def _cache_resident_bytes(self) -> float:
-        """The device cache's bytes on this engine's card; 0 on the CPU."""
-        if self.device.type != "cuda":
-            return 0.0
-        return _resident_on_card(_card_index(self.device))
+        return MM.admission_budget_bytes(budget, LC.resident_bytes(self))
 
     def _paged_join_enabled(self) -> bool:
         return bool(self.config.get(BALLISTA_ENGINE_PAGED_JOIN))
@@ -1139,7 +999,7 @@ class TorchEngine(NumpyEngine):
 
         def scan_of(node: P.PhysicalPlan, enc) -> P.MemoryScanExec:
             # a stand-in's rows are on the device only: its scan runs again
-            batch = (self._exec_child(node, part) if stand_ins(enc)
+            batch = (self._exec_child(node, part) if KT.stand_ins(enc)
                      else KT.decode_encoded_batch(enc))
             parts = [batch if i == part else ColumnBatch.empty(enc.schema)
                      for i in range(max(node.output_partitions(), part + 1))]
@@ -1187,31 +1047,11 @@ class TorchEngine(NumpyEngine):
                 out.extend(self._await_prefetched(*pre))
                 continue
             if kind == "out" and cache_key is not None:
-                out.extend(self._resident_leaf(enc, cache_key, node, part))
+                out.extend(LC.resident_leaf(
+                    self, enc, cache_key, lambda: self._encode(self._exec_child(node, part))))
                 continue
-            out.extend(self._cached_on_device(cache_key, arrays))
+            out.extend(LC.on_device(self, cache_key, arrays))
         return out
-
-    def _resident_leaf(self, enc, key: tuple, node: P.PhysicalPlan, part: int) -> list:
-        """A cached scan leaf's tensors, through the device cache. On CUDA
-        its host entry then keeps only the metadata (``_with_stand_ins``);
-        a stand-in whose device copy has gone is encoded again from its
-        scan."""
-        def host() -> list:
-            if not stand_ins(enc):
-                return enc.arrays
-            return self._encode(self._exec_child(node, part)).arrays
-
-        tensors = self._cached_on_device(key, enc.arrays, host=host)
-        if self._keeps_stand_ins() and not stand_ins(enc):
-            self._leaf_put(_ENC_CACHE, key, _with_stand_ins(enc))
-        return tensors
-
-    def _keeps_stand_ins(self) -> bool:
-        """Whether a leaf on the device keeps only stand-ins on the host:
-        on CUDA. On the CPU a cached tensor shares its host array's memory,
-        so dropping the array frees nothing."""
-        return self.device.type == "cuda"
 
     def _await_prefetched(self, tensors: list, done) -> list:
         """Tensors the prefetch copied on the side stream, made safe to use
@@ -1225,27 +1065,6 @@ class TorchEngine(NumpyEngine):
                 t.record_stream(cur)
         self._metric("op.PrefetchH2D.count", 1.0)
         return tensors
-
-    def _cached_on_device(self, cache_key: Optional[tuple], arrays: list,
-                          device=None, host=None) -> list:
-        """``arrays`` on ``device`` (default the engine's), read through the
-        device cache under ``cache_key`` unless it is None. ``host()``, when
-        given, supplies the host arrays to copy (``arrays`` may be
-        stand-ins)."""
-        if cache_key is None:
-            return self._to_device(arrays, device)
-        key = self._dev_key(cache_key, device)
-
-        def load() -> list:
-            src = arrays if host is None else host()
-            self._room_for(sum(a.nbytes for a in src))
-            return self._to_device(src, device)
-
-        cached = self._leaf_lookup(_DEV_CACHE, key, load)
-        if len(cached) != len(arrays):  # stale entry shape: reload
-            cached = load()
-            self._leaf_put(_DEV_CACHE, key, cached)
-        return cached
 
     def _to_device(self, arrays: list, device=None) -> list:
         """Host arrays on ``device`` (default the engine's): the copies
@@ -1271,10 +1090,9 @@ class TorchEngine(NumpyEngine):
           (sorted build keys, duplicate bucket);
         * ``"cross"`` — a cross join's one-row right side.
 
-        A scan leaf's encoding comes from the encode cache under its content
-        key (``_leaf_cache_key``), a build's device copy is cached under the
-        prepared batch's id, so it crosses to the device once per execution.
-        Insertion order is the stage's parameter layout."""
+        A scan leaf's encoding is read through the leaf caches under its
+        content key (``_leaf_cache_key``). Insertion order is the stage's
+        parameter layout."""
         leaves: dict[int, tuple] = {}
 
         def visit(node: P.PhysicalPlan):
@@ -1303,7 +1121,7 @@ class TorchEngine(NumpyEngine):
                         return
                 visit(node.left)
                 enc, bk, max_dup, uid = self._prepared_build(node, part)
-                leaves[id(node)] = ("build", enc, (bk, max_dup), ("build", uid), node)
+                leaves[id(node)] = ("build", enc, (bk, max_dup), LC.build_key(uid), node)
                 return
             if isinstance(node, P.CrossJoinExec) and _supported(node):
                 visit(node.left)
@@ -1317,11 +1135,7 @@ class TorchEngine(NumpyEngine):
                     visit(c)
                 return
             key = _leaf_cache_key(node, part)
-            if key is None:
-                enc = self._encode(self._exec_child(node, part))
-            else:
-                enc = self._leaf_lookup(_ENC_CACHE, key,
-                                        lambda: self._encode(self._exec_child(node, part)))
+            enc = LC.encoding(self, key, lambda: self._encode(self._exec_child(node, part)))
             leaves[id(node)] = ("out", enc, None, key, node)
 
         visit(plan)
@@ -1717,28 +1531,6 @@ def _shape_key(leaves: dict) -> tuple:
 
     return tuple((kind, layout(enc), None if extra is None else (tuple(extra[0].shape), extra[1]))
                  for kind, enc, extra, _key, _node in leaves.values())
-
-
-def _card_index(device) -> int:
-    """The index of the CUDA card ``device`` names (the current one for a
-    bare ``cuda``)."""
-    d = torch.device(device)
-    return d.index if d.index is not None else torch.cuda.current_device()
-
-
-# a device-cache key's device string -> its card's index (None: not CUDA)
-_KEY_CARDS: dict = {}
-
-
-def _resident_on_card(card: int) -> float:
-    """The bytes of the device cache's copies on CUDA card ``card``."""
-    def on_card(key) -> bool:
-        dev = key[1]
-        if dev not in _KEY_CARDS:
-            _KEY_CARDS[dev] = _card_index(dev) if dev.startswith("cuda") else None
-        return _KEY_CARDS[dev] == card
-
-    return _DEV_CACHE.total_weight(on_card)
 
 
 def _leaf_cache_key(node: P.PhysicalPlan, part: int) -> Optional[tuple]:

@@ -465,6 +465,24 @@ class EncodedBatch:
         return self.dict_ids[i] if self.dict_ids else None
 
 
+def stand_ins(enc: EncodedBatch) -> bool:
+    """Whether the encoding's arrays are storage-free stand-ins."""
+    return bool(enc.arrays) and isinstance(enc.arrays[-1], torch.Tensor)
+
+
+def with_stand_ins(enc: EncodedBatch) -> EncodedBatch:
+    """The encoding with its arrays (numpy or tensors) replaced by ``meta``
+    tensors of the same shapes and dtypes: its metadata alone."""
+    return replace(enc, arrays=[
+        torch.empty(a.shape, device="meta", dtype=a.dtype if isinstance(a, torch.Tensor)
+                    else torch.from_numpy(np.empty(0, a.dtype)).dtype) for a in enc.arrays])
+
+
+def shard_pad(n: int, n_dev: int) -> int:
+    """The pad of ``n`` rows in ``n_dev`` equal power-of-two shards."""
+    return bucket_size(max(1, -(-n // n_dev))) * n_dev
+
+
 def encode_host_batch(batch: ColumnBatch, pad: Optional[int] = None,
                       dictionaries: Optional[list] = None,
                       force_null: Optional[list] = None,
@@ -672,8 +690,7 @@ def encode_device_batches(parts: list, n_dev: int, wait=contextlib.nullcontext,
     if n == 0 or (max_rows and n > max_rows):
         return counts, None, None
 
-    per_dev = bucket_size(max(1, -(-n // n_dev)))
-    pad = per_dev * n_dev
+    pad = shard_pad(n, n_dev)
     # each valid row's slot in the output; every other row lands on slot pad
     dest = torch.where(rv, cum[1:] - 1, pad)
 
@@ -722,9 +739,8 @@ def encode_device_batches(parts: list, n_dev: int, wait=contextlib.nullcontext,
         ssums.append(ssum)
         dict_ids.append(did)
     arrays.append(torch.arange(pad, device=rv.device) < n)
-    stand_ins = [torch.empty(a.shape, dtype=a.dtype, device="meta") for a in arrays]
-    enc = EncodedBatch(schema, n, pad, stand_ins, col_meta, int_ranges, ssums,
-                       dict_ids if any(dict_ids) else None)
+    enc = with_stand_ins(EncodedBatch(schema, n, pad, arrays, col_meta, int_ranges, ssums,
+                                      dict_ids if any(dict_ids) else None))
     return counts, enc, arrays
 
 

@@ -49,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ballista_tpu_torch.engine import leaf_cache as LC
 from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.ops import kernels_torch as KT
 from ballista_tpu_torch.ops.batch import ColumnBatch
@@ -488,7 +489,7 @@ def run_fused_aggregate_multihost(final_plan: P.HashAggregateExec,
     holders = [{} for _ in mesh]
     fns = [FX.make_aggregate_dev_fn(final_plan, partial_plan, enc, n_dev, h) for h in holders]
     out, _dt = FX._run_mesh(
-        engine, fns, FX._on_mesh(engine, enc, mesh, None), mesh, enc.n_rows,
+        engine, fns, LC.on_mesh(engine, enc, mesh), mesh, enc.n_rows,
         FX.aggregate_estimate(final_plan, partial_plan, enc, holders, n_dev),
         group=att, timeout=att.timeout_s)
     att.release()
@@ -530,8 +531,8 @@ def run_fused_join_multihost(join_plan: P.HashJoinExec, local_left: list, local_
         return ColumnBatch.empty(join_plan.schema())
     holders = [{} for _ in mesh]
     fns = [FX.make_join_dev_fn(join_plan, lenc, renc, n_dev, h) for h in holders]
-    ldev = FX._on_mesh(engine, lenc, mesh, None)
-    rdev = FX._on_mesh(engine, renc, mesh, None)
+    ldev = LC.on_mesh(engine, lenc, mesh)
+    rdev = LC.on_mesh(engine, renc, mesh)
     out, _dt = FX._run_mesh(
         engine, fns, [ld + rd for ld, rd in zip(ldev, rdev)], mesh, lenc.n_rows + renc.n_rows,
         FX.join_estimate(join_plan, lenc, renc, len(mesh), n_dev), group=att,

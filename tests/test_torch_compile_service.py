@@ -32,6 +32,7 @@ import pytest
 
 from ballista_tpu_torch.config import BallistaConfig
 from ballista_tpu_torch.engine import compile_service as CS
+from ballista_tpu_torch.engine import leaf_cache as LC
 from ballista_tpu_torch.engine import torch_engine as TE
 from ballista_tpu_torch.models.tpch import TPCH_TABLES
 from ballista_tpu_torch.ops import grouped_sums as GS
@@ -317,8 +318,8 @@ def test_service_warm_then_stage_adopts(fresh_service):
 
 def test_warm_declines_over_budget_and_keeps_out_of_leaf_caches(fresh_service):
     tmpl, _final, _unresolved, _schema = _final_agg_template()
-    enc0 = (TE._ENC_CACHE.hits, TE._ENC_CACHE.misses, len(TE._ENC_CACHE))
-    dev0 = (TE._DEV_CACHE.hits, TE._DEV_CACHE.misses, len(TE._DEV_CACHE))
+    enc0 = (LC.ENC.hits, LC.ENC.misses, len(LC.ENC))
+    dev0 = (LC.DEV.hits, LC.DEV.misses, len(LC.DEV))
     fresh_service.submit_hints(_hint_payload(tmpl), {"ballista.engine.hbm_budget_bytes": "64"},
                                device="cpu")
     assert fresh_service.wait_idle(60)
@@ -330,8 +331,8 @@ def test_warm_declines_over_budget_and_keeps_out_of_leaf_caches(fresh_service):
     fresh_service.submit_hints(_hint_payload(tmpl, rows=100), {}, device="cpu")
     assert fresh_service.wait_idle(60)
     assert fresh_service.stats()["hint_compiled"] == 3
-    assert (TE._ENC_CACHE.hits, TE._ENC_CACHE.misses, len(TE._ENC_CACHE)) == enc0
-    assert (TE._DEV_CACHE.hits, TE._DEV_CACHE.misses, len(TE._DEV_CACHE)) == dev0
+    assert (LC.ENC.hits, LC.ENC.misses, len(LC.ENC)) == enc0
+    assert (LC.DEV.hits, LC.DEV.misses, len(LC.DEV)) == dev0
 
 
 def test_warm_reaches_the_device_past_min_device_rows(fresh_service):
@@ -407,8 +408,7 @@ def cluster(tmp_path_factory):
 
 
 def _cache_stats():
-    return {name: (c.hits, c.misses) for name, c in (("enc", TE._ENC_CACHE),
-                                                     ("dev", TE._DEV_CACHE))}
+    return {name: (c.hits, c.misses) for name, c in (("enc", LC.ENC), ("dev", LC.DEV))}
 
 
 def _run_side(cluster, data_dir, precompile: str) -> dict:

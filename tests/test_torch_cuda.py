@@ -300,9 +300,9 @@ def test_cpu_and_cuda_engines_share_no_cache_entry(card, sf001_tables):
     """q1 and q3 on a CPU engine and a CUDA engine in one process: every
     device-cache entry names one device and holds tensors on it only."""
     from ballista_tpu_torch.client.context import BallistaContext
-    from ballista_tpu_torch.engine import torch_engine as TE
+    from ballista_tpu_torch.engine import leaf_cache as LC
 
-    TE.clear_caches()
+    LC.clear()
     ctxs = {"cpu": BallistaContext.standalone(device="cpu"), "cuda": BallistaContext.standalone()}
     for c in ctxs.values():
         for t, path in sf001_tables.items():
@@ -313,7 +313,7 @@ def test_cpu_and_cuda_engines_share_no_cache_entry(card, sf001_tables):
         for c in ctxs.values():
             c.sql(sql).collect()
     seen = set()
-    for key, tensors in TE._DEV_CACHE._entries.items():
+    for key, tensors in LC.DEV._entries.items():
         device = torch.device(key[1])
         assert all(t.device.type == device.type for t in tensors), key
         seen.add(device.type)

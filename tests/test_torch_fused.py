@@ -46,6 +46,7 @@ from ballista_tpu.parallel.mesh import build_mesh
 from ballista_tpu_torch.client.context import BallistaContext
 from ballista_tpu_torch.config import BallistaConfig
 from ballista_tpu_torch.engine import fused_exchange as FX
+from ballista_tpu_torch.engine import leaf_cache as LC
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine import torch_engine as TE
 from ballista_tpu_torch.errors import ExecutionError
@@ -399,12 +400,17 @@ def test_device_built_input_equals_the_host_build(ctxs, qname, n_dev):
     the host build's encoding: rows, pad, each column's dtype, null flag,
     dictionary and scale, ranges, subset-sum bounds and shared dictionary
     ids, and every array equal element for element (its shards
-    concatenated), so the fused program makes the same decisions."""
+    concatenated), so the fused program makes the same decisions. The
+    device build comes first, over empty caches; the host build then takes
+    the place of its stand-ins."""
     tctx, _ = ctxs[500_000]
     child = _fused_input(tctx, qname)
-    want = FX._build_sharded_input(TE.TorchEngine(tctx.config, device="cpu"), child, n_dev)
+    mesh = port_mesh(n_dev, "cpu")
+    LC.clear()
     engine = TE.TorchEngine(tctx.config, device="cpu")
-    got, shards = FX._build_input(engine, child, port_mesh(n_dev, "cpu"))
+    got, shards = FX.fused_input(engine, child, mesh)
+    want, _ = FX.fused_input(TE.TorchEngine(tctx.config, device="cpu"), child, mesh,
+                             device_ok=False)
     assert shards is not None and len(shards) == n_dev
     assert engine.op_metrics["op.FusedInput.device_builds"] == 1.0
     assert "op.FusedInput.host_builds" not in engine.op_metrics
@@ -563,15 +569,15 @@ def test_device_cache_eviction_of_a_device_built_input_builds_it_again(ctxs):
     tctx, _ = ctxs[500_000]
     TE.clear_caches()
     want = tctx.sql(_sql("q1")).collect()
-    (enc,) = [v for k, v in TE._ENC_CACHE._entries.items() if k[0] == "fused_in"]
+    (enc,) = [v for k, v in LC.ENC._entries.items() if k[0] == "fused_in"]
     assert all(a.device.type == "meta" for a in enc.arrays)
-    evicted = [k for k in TE._DEV_CACHE._entries if k[0][0] == "fused_dev"]
+    evicted = [k for k in LC.DEV._entries if k[0][0] == "fused_dev"]
     assert evicted
     for k in evicted:
-        TE._DEV_CACHE.invalidate(k)
+        LC.DEV.invalidate(k)
     assert tctx.sql(_sql("q1")).collect().equals(want)
     assert tctx.last_engine_metrics["op.FusedInput.device_builds"] == 1.0
-    assert all(k in TE._DEV_CACHE._entries for k in evicted)
+    assert all(k in LC.DEV._entries for k in evicted)
     assert tctx.sql(_sql("q1")).collect().equals(want)
     assert not any(k.startswith("op.FusedInput.") for k in tctx.last_engine_metrics)
 
@@ -584,12 +590,13 @@ def test_host_sharded_input_replaces_a_device_build(ctxs):
     TE.clear_caches()
     child = _fused_input(tctx, "q1")
     engine = TE.TorchEngine(tctx.config, device="cpu")
-    FX._sharded_input(engine, child, port_mesh(1, "cpu"))
+    mesh = port_mesh(1, "cpu")
+    FX.fused_input(engine, child, mesh)
     assert engine.op_metrics["op.FusedInput.device_builds"] == 1.0
-    enc = FX.host_sharded_input(engine, child, 1)
-    assert all(isinstance(a, np.ndarray) for a in enc.arrays)
+    enc, shards = FX.fused_input(engine, child, mesh, device_ok=False)
+    assert shards is None and all(isinstance(a, np.ndarray) for a in enc.arrays)
     assert engine.op_metrics["op.FusedInput.host_builds"] == 1.0
-    assert FX.host_sharded_input(engine, child, 1) is enc
+    assert FX.fused_input(engine, child, mesh, device_ok=False)[0] is enc
 
 
 def _write_table(path, values):
@@ -630,7 +637,7 @@ def test_table_registered_again_misses_the_cache(tmp_path):
 
 
 def _fused_pins():
-    return [k for k in TE._DEV_CACHE._pinned if k[0][0] == "fused_dev"]
+    return [k for k in LC.DEV._pinned if k[0][0] == "fused_dev"]
 
 
 def test_pin_device_cache_pins_and_unpins_on_reregistration(tmp_path):
@@ -651,7 +658,7 @@ def test_pin_device_cache_pins_and_unpins_on_reregistration(tmp_path):
     ctx.sql(GROUP_SQL).collect()
     second = _fused_pins()
     assert len(second) == 1 and second != first
-    assert TE._DEV_CACHE.get(first[0]) is None  # the old content's copy is gone
+    assert LC.DEV.get(first[0]) is None  # the old content's copy is gone
     ctx.config.set("ballista.tpu.pin_device_cache", False)
     ctx.sql(GROUP_SQL).collect()
     assert _fused_pins() == []
@@ -661,7 +668,7 @@ def test_device_cache_keys_name_the_device_and_ephemeral_scans_have_none(torch_t
     ctx = BallistaContext.standalone(device="cpu")
     ctx.register_parquet("lineitem", os.path.join(torch_tpch_dir, "lineitem"))
     ctx.sql(_sql("q6")).collect()
-    keys = list(TE._DEV_CACHE._entries)
+    keys = list(LC.DEV._entries)
     assert keys and all(k[1] == "cpu" for k in keys)
     batch = TE.ColumnBatch.from_arrow(pa.table({"a": [1, 2]}))
     scan = P.MemoryScanExec([batch], batch.schema)

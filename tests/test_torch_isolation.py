@@ -6,6 +6,7 @@ they need; only the tests import both packages.
 import ast
 import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -320,6 +321,30 @@ print("GROUP", 2)
 assert not any(k == "jax" or k.startswith(("jax.", "ballista_tpu."))
                for k, v in sys.modules.items() if v is not None)
 """
+
+
+def test_leaf_cache_policy_has_one_owner():
+    """``engine/leaf_cache.py`` owns the leaf caches' policy: it imports
+    neither ``torch_engine`` nor ``fused_exchange`` (the arrows point one
+    way), and no other port module spells the tags of its derived entries
+    or pins, unpins, invalidates or evicts a leaf cache."""
+    store = os.path.join(PORT, "engine", "leaf_cache.py")
+    named = {m for m, _ in _imports(store)} | {f"{m}.{n}" for m, n in _imports(store) if n}
+    assert not [m for m in named if m.split(".")[-1] in ("torch_engine", "fused_exchange")]
+    tag = re.compile(r"""["']fused_(in|dev|jb|jb_dev)["']""")
+    caches = {"ENC", "DEV", "_ENC_CACHE", "_DEV_CACHE"}
+    for path in _port_sources():
+        if path == store:
+            continue
+        with open(path) as f:
+            src = f.read()
+        assert not tag.search(src), path
+        for node in ast.walk(ast.parse(src, path)):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr in ("pin", "unpin", "invalidate", "invalidate_if",
+                                           "evict_for")):
+                receiver = ast.unparse(node.func.value).split(".")[-1]
+                assert receiver not in caches, (path, node.lineno)
 
 
 def test_q1_runs_with_jax_and_reference_blocked(torch_tpch_dir):

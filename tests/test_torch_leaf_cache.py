@@ -9,7 +9,7 @@
   tensors are in the device cache; a device eviction drops the stand-in, so
   the next lookup scans and encodes again. The CPU has no CUDA engine, so
   these cases let a CPU engine keep stand-ins as a CUDA one does
-  (``_keeps_stand_ins``), over a fresh pair of caches.
+  (``leaf_cache.keeps_stand_ins``), over a fresh pair of caches.
 - The governor admits a stage against the budget less the cache's resident
   bytes on the card.
 - TPC-H q1, q3, q5, q6 and q12 at SF 0.01 with both caches capped below the
@@ -28,9 +28,11 @@ import torch
 
 from ballista_tpu_torch.client.context import BallistaContext
 from ballista_tpu_torch.config import BallistaConfig
+from ballista_tpu_torch.engine import leaf_cache as LC
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine import torch_engine as TE
 from ballista_tpu_torch.models.tpch import TPCH_TABLES
+from ballista_tpu_torch.ops import kernels_torch as KT
 from ballista_tpu_torch.utils.cache import LoadingCache
 
 from test_torch_data import torch_oracle_tables, torch_tpch_dir  # noqa: F401
@@ -50,20 +52,20 @@ def _sql(qname: str) -> str:
 
 
 def _fresh_caches(monkeypatch, enc_bytes: float, dev_bytes: float) -> tuple:
-    """A fresh pair of leaf caches with the engine's weighers and listener,
+    """A fresh pair of leaf caches with the store's weighers and listener,
     of the given capacities, in place of the process's."""
-    enc = LoadingCache(capacity=enc_bytes, weigher=TE._ENC_CACHE.weigher, keep_weightless=True)
-    dev = LoadingCache(capacity=dev_bytes, weigher=TE._DEV_CACHE.weigher,
-                       eviction_listener=TE._device_evicted)
-    monkeypatch.setattr(TE, "_ENC_CACHE", enc)
-    monkeypatch.setattr(TE, "_DEV_CACHE", dev)
+    enc = LoadingCache(capacity=enc_bytes, weigher=LC.ENC.weigher, keep_weightless=True)
+    dev = LoadingCache(capacity=dev_bytes, weigher=LC.DEV.weigher,
+                       eviction_listener=LC._device_evicted)
+    monkeypatch.setattr(LC, "ENC", enc)
+    monkeypatch.setattr(LC, "DEV", dev)
     return enc, dev
 
 
 @pytest.fixture
 def stand_ins(monkeypatch):
     """The CPU engine keeps stand-ins on the host as a CUDA engine does."""
-    monkeypatch.setattr(TE.TorchEngine, "_keeps_stand_ins", lambda self: True)
+    monkeypatch.setattr(LC, "keeps_stand_ins", lambda engine: True)
 
 
 def _ctx(torch_tpch_dir, **settings) -> BallistaContext:  # noqa: F811
@@ -75,16 +77,49 @@ def _ctx(torch_tpch_dir, **settings) -> BallistaContext:  # noqa: F811
 
 
 def _rotation(ctx, oracle_tables) -> dict:
-    """The rotation once, each answer against the oracle; the leaf-cache
-    counters of its queries summed."""
+    """The rotation once, each answer against the oracle; the leaf-cache,
+    fused-input, swapped-join and device-execute counters of its queries
+    summed."""
     out: dict = {}
     for q in ROTATION:
         got = ctx.sql(_sql(q)).collect().to_pandas()
         assert_frames_match(got, ORACLES[q](oracle_tables), q in ORDERED, q)
         for k, v in ctx.last_engine_metrics.items():
-            if k.startswith("op.LeafCache."):
+            if k.startswith(("op.LeafCache.", "op.FusedInput.")) or k in COUNTED:
                 out[k] = out.get(k, 0.0) + v
     return out
+
+
+# the counters a rotation's lookups, builds and programs are pinned by
+COUNTED = ("op.LeafCache.hits", "op.LeafCache.misses", "op.LeafCache.device_hits",
+           "op.LeafCache.device_misses", "op.LeafCache.evicted_bytes",
+           "op.FusedInput.device_builds", "op.FusedInput.host_builds", "op.FusedJoin.swapped",
+           "op.DeviceExecute.count")
+# per case (capped, keeps_stand_ins, broadcast threshold): the COUNTED
+# values of the cold rotation and of two warm ones, recorded on the code
+# before the leaf caches' policy moved into engine/leaf_cache.py
+_UNCAPPED = [(6, 62, 6, 35, 0, 4, 0, 0, 92), (12, 0, 6, 0, 0, 0, 0, 0, 71),
+             (12, 0, 6, 0, 0, 0, 0, 0, 71)]
+_UNCAPPED_T0 = [(24, 102, 20, 67, 0, 9, 3, 1, 264), (52, 32, 34, 32, 0, 0, 3, 1, 241),
+                (52, 32, 34, 32, 0, 0, 3, 1, 241)]
+ROTATION_COUNTS = {
+    (False, False, None): _UNCAPPED,
+    (False, True, None): _UNCAPPED,
+    (False, False, "0"): _UNCAPPED_T0,
+    (False, True, "0"): _UNCAPPED_T0,
+    (True, False, None): [(6, 62, 6, 35, 15935360, 4, 0, 0, 92),
+                          (6, 62, 6, 35, 17688584, 4, 0, 0, 92),
+                          (6, 62, 6, 35, 17688584, 4, 0, 0, 92)],
+    (True, True, None): [(6, 62, 6, 35, 11035128, 4, 0, 0, 92),
+                         (6, 62, 6, 35, 12562560, 4, 0, 0, 92),
+                         (6, 62, 6, 35, 12562560, 4, 0, 0, 92)],
+    (True, False, "0"): [(24, 102, 20, 67, 20846592, 9, 3, 1, 264),
+                         (24, 102, 20, 67, 22000952, 9, 3, 1, 264),
+                         (24, 102, 20, 67, 22000952, 9, 3, 1, 264)],
+    (True, True, "0"): [(24, 102, 20, 67, 14038528, 9, 3, 1, 264),
+                        (24, 102, 20, 67, 14843312, 9, 3, 1, 264),
+                        (24, 102, 20, 67, 14843312, 9, 3, 1, 264)],
+}
 
 
 # ---- the capacity rule and the cache's accounting ------------------------------------
@@ -104,10 +139,10 @@ def test_h100_capacity_holds_a_warm_sf10_working_set():
 
 def test_cuda_engine_sizes_the_device_cache_once(monkeypatch):
     _enc, dev = _fresh_caches(monkeypatch, 1 << 30, 8 << 30)
-    monkeypatch.setattr(TE, "_DEV_CACHE_SIZED", False)
+    monkeypatch.setattr(LC, "_SIZED", False)
     engine = TE.TorchEngine(device="cpu")
-    engine._size_device_cache()
-    assert dev.capacity == 8 << 30 and not TE._DEV_CACHE_SIZED  # the CPU sizes nothing
+    LC._size_device_cache(engine)
+    assert dev.capacity == 8 << 30 and not LC._SIZED  # the CPU sizes nothing
     assert "op.LeafCache.device_capacity.max_bytes" not in engine.op_metrics
 
     class Card:
@@ -115,12 +150,12 @@ def test_cuda_engine_sizes_the_device_cache_once(monkeypatch):
 
     monkeypatch.setattr(engine, "device", Card())
     monkeypatch.setattr(engine, "_hbm_budget", lambda: H100_BUDGET)
-    engine._size_device_cache()
+    LC._size_device_cache(engine)
     assert dev.capacity == MM.device_cache_bytes(H100_BUDGET)
     assert engine.op_metrics["op.LeafCache.device_capacity.max_bytes"] == dev.capacity
     # resolved once in the process: a later engine's budget changes nothing
     monkeypatch.setattr(engine, "_hbm_budget", lambda: 1 << 20)
-    engine._size_device_cache()
+    LC._size_device_cache(engine)
     assert dev.capacity == MM.device_cache_bytes(H100_BUDGET)
 
 
@@ -164,21 +199,20 @@ def test_resident_bytes_count_one_card(monkeypatch):
     dev.put((("pq", 1), "cuda:0", True), [torch.zeros(100, dtype=torch.int64)])
     dev.put((("pq", 2), "cuda:1", True), [torch.zeros(10, dtype=torch.int64)])
     dev.put((("pq", 3), "cpu", True), [torch.zeros(1000, dtype=torch.int64)])
-    assert TE._resident_on_card(0) == 800 and TE._resident_on_card(1) == 80
+    assert LC._resident_on_card(0) == 800 and LC._resident_on_card(1) == 80
 
 
 # ---- host stand-ins ----------------------------------------------------------------------
 def test_stand_in_keeps_metadata_and_weighs_nothing():
-    from ballista_tpu_torch.ops import kernels_torch as KT
     from ballista_tpu_torch.ops.batch import ColumnBatch
 
     batch = ColumnBatch.from_arrow(pa.table({
         "a": np.arange(5, dtype=np.int64), "b": np.array([1.25, 2.5, 3.75, 4.0, 5.5]),
         "s": ["x", "y", "x", "z", "y"]}))
     enc = KT.encode_host_batch(batch)
-    stand = TE._with_stand_ins(enc)
-    assert TE.stand_ins(stand) and not TE.stand_ins(enc)
-    assert TE._ENC_CACHE.weigher(stand) == 0 < TE._ENC_CACHE.weigher(enc)
+    stand = KT.with_stand_ins(enc)
+    assert KT.stand_ins(stand) and not KT.stand_ins(enc)
+    assert LC.ENC.weigher(stand) == 0 < LC.ENC.weigher(enc)
     assert [(tuple(t.shape), t.device.type) for t in stand.arrays] == \
         [(a.shape, "meta") for a in enc.arrays]
     assert [t.dtype for t in stand.arrays] == [torch.from_numpy(a).dtype for a in enc.arrays]
@@ -192,7 +226,7 @@ def test_leaf_on_the_device_keeps_a_stand_in(torch_tpch_dir, torch_oracle_tables
     ctx = _ctx(torch_tpch_dir)
     _rotation(ctx, torch_oracle_tables)
     scans = [k for k in enc._entries if k[0] == "pq"]
-    assert scans and all(TE.stand_ins(enc._entries[k]) for k in scans)
+    assert scans and all(KT.stand_ins(enc._entries[k]) for k in scans)
     assert enc.total_weight() == 0
     on_device = {k[0] for k in dev._entries}
     assert set(scans) <= on_device
@@ -208,10 +242,10 @@ def test_device_eviction_drops_the_stand_in(torch_tpch_dir, torch_oracle_tables,
     ctx = _ctx(torch_tpch_dir)
     _rotation(ctx, torch_oracle_tables)
     key = next(k for k in dev._entries if k[0][0] == "pq")
-    assert TE.stand_ins(enc._entries[key[0]])
+    assert KT.stand_ins(enc._entries[key[0]])
     # make room for the whole cache: every copy leaves, and its stand-in
     dev.evict_for(dev.capacity)
-    assert len(dev) == 0 and not any(TE.stand_ins(v) for v in enc._entries.values())
+    assert len(dev) == 0 and not any(KT.stand_ins(v) for v in enc._entries.values())
     # the next rotation scans and encodes again, with the same answers
     again = _rotation(ctx, torch_oracle_tables)
     assert again["op.LeafCache.device_misses"] > 0
@@ -229,8 +263,8 @@ def test_stand_in_whose_copy_is_gone_is_encoded_again(torch_tpch_dir,  # noqa: F
     _rotation(ctx, torch_oracle_tables)
     dev.eviction_listener = None
     dev.clear()
-    dev.eviction_listener = TE._device_evicted
-    assert any(TE.stand_ins(v) for v in enc._entries.values())
+    dev.eviction_listener = LC._device_evicted
+    assert any(KT.stand_ins(v) for v in enc._entries.values())
     again = _rotation(ctx, torch_oracle_tables)
     assert again["op.LeafCache.device_misses"] > 0 and len(dev) > 0
 
@@ -267,7 +301,7 @@ def test_stage_admitted_against_budget_less_resident(monkeypatch):
                 "ballista.engine.hbm_budget_bytes": str(50_000_000)}
 
     def run(resident: float):
-        monkeypatch.setattr(TE.TorchEngine, "_cache_resident_bytes", lambda self: resident)
+        monkeypatch.setattr(LC, "resident_bytes", lambda engine: resident)
         ctx = BallistaContext.standalone(BallistaConfig(dict(settings)), device="cpu")
         ctx.register_arrow("a", probe, partitions=2)
         ctx.register_arrow("b", build, partitions=2)
@@ -281,20 +315,26 @@ def test_stage_admitted_against_budget_less_resident(monkeypatch):
 
 
 # ---- TPC-H under capped and roomy caches ---------------------------------------------------
+@pytest.mark.parametrize("threshold", [None, "0"])
 @pytest.mark.parametrize("keeps_stand_ins", [False, True])
 @pytest.mark.parametrize("capped", [True, False])
 def test_rotation_under_capped_and_roomy_caches(torch_tpch_dir, torch_oracle_tables,  # noqa: F811
-                                                monkeypatch, capped, keeps_stand_ins):
+                                                monkeypatch, capped, keeps_stand_ins,
+                                                threshold):
     """At SF 0.01 a rotation's leaves weigh about 7 MB encoded and 10 MB on
     the device. Capped below that, every rotation evicts and answers right;
     with room, a warm rotation evicts nothing and only hits, and two warm
-    rotations count the same hits."""
-    monkeypatch.setattr(TE.TorchEngine, "_keeps_stand_ins", lambda self: keeps_stand_ins)
+    rotations count the same hits. With a broadcast threshold of 0 the
+    joins partition, fuse and swap as at SF1. Every rotation's counters
+    (``COUNTED``) are pinned to the literals of ``ROTATION_COUNTS``."""
+    monkeypatch.setattr(LC, "keeps_stand_ins", lambda engine: keeps_stand_ins)
     if capped:
         enc, dev = _fresh_caches(monkeypatch, 1 << 20, 2 << 20)
     else:
         enc, dev = _fresh_caches(monkeypatch, 1 << 30, 1 << 30)
-    ctx = _ctx(torch_tpch_dir)
+    settings = {} if threshold is None else {"ballista.optimizer.broadcast_rows_threshold":
+                                             threshold}
+    ctx = _ctx(torch_tpch_dir, **settings)
     cold = _rotation(ctx, torch_oracle_tables)
     warm = [_rotation(ctx, torch_oracle_tables) for _ in range(2)]
     for m in [cold] + warm:
@@ -309,10 +349,17 @@ def test_rotation_under_capped_and_roomy_caches(torch_tpch_dir, torch_oracle_tab
         assert cold.get("op.LeafCache.evicted_bytes", 0) == 0
         for m in warm:
             assert m.get("op.LeafCache.evicted_bytes", 0) == 0
-            assert m.get("op.LeafCache.misses", 0) == 0
-            assert m.get("op.LeafCache.device_misses", 0) == 0
+            if threshold is None:
+                # a partitioned join's build side is copied once per
+                # execution, under the prepared batch's id: it always misses
+                assert m.get("op.LeafCache.misses", 0) == 0
+                assert m.get("op.LeafCache.device_misses", 0) == 0
         assert warm[0] == warm[1]
         assert dev.evictions == 0 and enc.evictions == 0
+    got = [tuple(int(m.get(k, 0)) for k in COUNTED) for m in [cold] + warm]
+    assert got == ROTATION_COUNTS[capped, keeps_stand_ins, threshold]
+    # nothing counted outside COUNTED under these prefixes
+    assert {k for m in [cold] + warm for k in m} <= set(COUNTED)
 
 
 def test_eviction_opens_its_range(torch_tpch_dir, torch_oracle_tables,  # noqa: F811

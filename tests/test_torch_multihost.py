@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from ballista_tpu_torch.engine import fused_exchange as FX
+from ballista_tpu_torch.engine import leaf_cache as LC
 from ballista_tpu_torch.engine import memory_model as MM
 from ballista_tpu_torch.engine.torch_engine import TorchEngine, gang_collectives
 from ballista_tpu_torch.ops import kernels_torch as KT
@@ -137,7 +138,7 @@ def _port_shards(enc, fns, holders, device) -> list:
     shard's output rows."""
     mesh = build_mesh(N_DEV, device)
     eng = TorchEngine(device=device)
-    args = FX._on_mesh(eng, enc, mesh, None)
+    args = LC.on_mesh(eng, enc, mesh)
     outs = shard_map(lambda i, *a: fns[i](*a), [(i, *a) for i, a in enumerate(args)], mesh)
     shards = []
     for i, out in enumerate(outs):
@@ -148,7 +149,7 @@ def _port_shards(enc, fns, holders, device) -> list:
 
 def port_agg_shards(final, partial, device="cpu") -> list:
     eng = TorchEngine(device=device)
-    enc = FX._build_sharded_input(eng, partial.input, N_DEV)
+    enc, _ = FX.fused_input(eng, partial.input, build_mesh(N_DEV, device), device_ok=False)
     holders = [{} for _ in range(N_DEV)]
     fns = [FX.make_aggregate_dev_fn(final, partial, enc, N_DEV, h) for h in holders]
     return _port_shards(enc, fns, holders, device)
@@ -156,13 +157,13 @@ def port_agg_shards(final, partial, device="cpu") -> list:
 
 def port_join_shards(join, device="cpu") -> list:
     eng = TorchEngine(device=device)
-    lenc = FX._build_sharded_input(eng, join.left.input, N_DEV)
+    mesh = build_mesh(N_DEV, device)
+    lenc, _ = FX.fused_input(eng, join.left.input, mesh, device_ok=False)
     renc = FX.build_side_encoding(eng, join, N_DEV)
     holders = [{} for _ in range(N_DEV)]
     fns = [FX.make_join_dev_fn(join, lenc, renc, N_DEV, h) for h in holders]
-    mesh = build_mesh(N_DEV, device)
-    largs = FX._on_mesh(eng, lenc, mesh, None)
-    rargs = FX._on_mesh(eng, renc, mesh, None)
+    largs = LC.on_mesh(eng, lenc, mesh)
+    rargs = LC.on_mesh(eng, renc, mesh)
     outs = shard_map(lambda i, *a: fns[i](*a),
                      [(i, *l, *r) for i, (l, r) in enumerate(zip(largs, rargs))], mesh)
     shards = []
