@@ -24,6 +24,11 @@ key: a warm query reads its input from the devices and runs one program. The
 JAX package's compile cache and compile-service path have no counterpart
 (eager PyTorch compiles nothing).
 
+A fused program's output stays on the device (``_parts_with_dicts``): a
+device stage that reads it builds its leaf there (``TorchEngine._leaf_of``),
+and only a host consumer fetches it (``TorchEngine._on_host``). A megastage's and a mesh group's
+programs fetch theirs (``_finish_fused``, ``_fused_rows``).
+
 The per-shard bodies (``make_aggregate_dev_fn``, ``make_join_dev_fn``),
 their estimates and ``_run_mesh`` also run a mesh group's programs
 (``parallel/multihost.py``): there the input is each member's own, already
@@ -252,10 +257,23 @@ def _note_ici_metrics(engine, ici: bool, holder: dict, elapsed_s: float) -> None
     engine._metric("op.IciExchange.collective_time_s", elapsed_s)
 
 
-def _rest_empty(merged: ColumnBatch, n_parts: int) -> list[ColumnBatch]:
+def _rest_empty(merged, n_parts: int) -> list:
     """One batch per output partition: every row in partition 0 (placement
     is not load-bearing above a fused exchange), the others empty."""
     return [merged] + [ColumnBatch.empty(merged.schema) for _ in range(n_parts - 1)]
+
+
+def _parts_with_dicts(out: KT.DeviceBatch, n_parts: int) -> list:
+    """A fused program's result, one entry per output partition: its output
+    in partition 0, held on the device for its consumer
+    (``TorchEngine._fused_part``), and empty host batches in the others, whose
+    strings name the output's shared dictionaries, so that the consumer's
+    stages over every partition code them alike."""
+    parts = _rest_empty(out, n_parts)
+    for empty in parts[1:]:
+        for col, dc in zip(empty.columns, out.cols):
+            col.dict_id = dc.dict_id
+    return parts
 
 
 def _shard_enc(enc: KT.EncodedBatch, arrays: list) -> KT.EncodedBatch:
@@ -296,8 +314,8 @@ def run_fused_aggregate(engine, final_plan: P.HashAggregateExec,
     out, dt = _run_mesh(engine, fns, shard_args, mesh, enc.n_rows,
                         aggregate_estimate(final_plan, partial_plan, enc, holders, n_dev))
     _note_ici_metrics(engine, isinstance(final_plan.input, P.IciExchangeExec), holders[0], dt)
-    out_db = KT.device_batch_from_outputs(holders[0]["meta"], out, 0)
-    return _rest_empty(engine._fetch(out_db), final_plan.output_partitions())
+    return _parts_with_dicts(KT.device_batch_from_outputs(holders[0]["meta"], out, 0),
+                           final_plan.output_partitions())
 
 
 def aggregate_estimate(final_plan: P.HashAggregateExec, partial_plan: P.HashAggregateExec,
@@ -444,7 +462,9 @@ def run_fused_join(engine, join_plan: P.HashJoinExec, n_dev: int):
         with engine._wait():
             dup = int(out[-1].reshape(-1, 2)[:, 1].sum())
         vars(lenc).setdefault("keys_unique", {})[lsig] = dup == 0
-    result = _finish_fused(engine, holders[0], out, join_plan.output_partitions())
+    out_db = _fused_output(engine, holders[0], out)
+    result = (None if out_db is None
+              else _parts_with_dicts(out_db, join_plan.output_partitions()))
     if build_left and result is not None:
         engine._metric("op.FusedJoin.swapped", 1.0)
     # rows past an exchange's capacity surface as None (the caller demotes a
@@ -613,8 +633,8 @@ def make_join_body(join_plan: P.HashJoinExec, lenc: KT.EncodedBatch, renc: KT.En
     return body
 
 
-def _fused_rows(engine, holder: dict, out: list) -> Optional[ColumnBatch]:
-    """The program's rows on the host; None when its last output, the
+def _fused_output(engine, holder: dict, out: list) -> Optional[KT.DeviceBatch]:
+    """The program's output on the device; None when its last output, the
     mesh's unfusable counts, is non-zero (a host sync)."""
     with engine._wait():
         unfusable = int(out[-1].sum())
@@ -622,8 +642,14 @@ def _fused_rows(engine, holder: dict, out: list) -> Optional[ColumnBatch]:
         # rows past an exchange's capacity, or repeated keys on the sorted
         # side: the result is incomplete
         return None
-    out_db = KT.device_batch_from_outputs(holder["meta"], list(out[:-1]), 0)
-    return engine._fetch(out_db)
+    return KT.device_batch_from_outputs(holder["meta"], list(out[:-1]), 0)
+
+
+def _fused_rows(engine, holder: dict, out: list) -> Optional[ColumnBatch]:
+    """The program's rows on the host; None when the result is incomplete
+    (``_fused_output``)."""
+    out_db = _fused_output(engine, holder, out)
+    return None if out_db is None else engine._fetch(out_db)
 
 
 def _finish_fused(engine, holder: dict, out: list, n_parts: int) -> Optional[list[ColumnBatch]]:

@@ -186,7 +186,9 @@ class TorchEngine(NumpyEngine):
         # width of the fused exchange: the process's mesh (parallel.mesh_shards)
         self.mesh_devices = mesh_shards(self.device)
         # fused-exchange results of this execution, keyed by the exchange's
-        # (or the join's) node id; None records a declined attempt
+        # (or the join's) node id; None records a declined attempt. Partition
+        # 0 of a fused program's result may be held on the device for its
+        # consumer (_on_host, _leaf_of) until the execution or task ends
         self._fused: dict[int, Optional[list]] = {}
         # > 0 while a subtree runs on host kernels by choice (a tiny stage,
         # or a fused input materialized on the host): no device stages, and
@@ -229,7 +231,13 @@ class TorchEngine(NumpyEngine):
             # the root every task of the stage executes
             self._gang_nodes = {id(n) for n in gang_collectives(plan)}
             self._gang_root = id(plan)
-        return super().execute_partition(plan, partition)
+        try:
+            out = super().execute_partition(plan, partition)
+        except BaseException:
+            self._unhold(fetch=False)
+            raise
+        self._unhold(fetch=True)
+        return out
 
     def _gang_tag(self) -> Optional[str]:
         """The gang attempt's tag when the scheduler gang-launched this
@@ -245,7 +253,11 @@ class TorchEngine(NumpyEngine):
         self._tiny_keepalive.clear()
         self._build_prep.clear()
         before = GS.thread_record()
-        out = [self._exec(plan, i) for i in range(plan.output_partitions())]
+        try:
+            out = [self._exec(plan, i) for i in range(plan.output_partitions())]
+        finally:
+            # the fused outputs held for their consumers leave the device
+            self._fused.clear()
         with self._phase("ballista.stage.memory"):
             self._note_device_peak()
         # the execution's grouped_sums calls, its mesh shards' included
@@ -268,14 +280,14 @@ class TorchEngine(NumpyEngine):
             raise IciDemoted([plan.exchange_id], "no collective path for this exchange")
         fused = self._try_fused_exchange(plan, part)
         if fused is not None:
-            return fused
+            return self._on_host(fused)
         if self._host_only:
             # fused exchanges still apply (above, and a partitioned join at
             # the root of a host-only subtree); plain device stages do not
             if _fusable_partitioned_join(plan):
                 fj = self._try_fused_join(plan, part)
                 if fj is not None:
-                    return fj
+                    return self._on_host(fj)
             return super()._exec(plan, part)
         if isinstance(plan, P.HashJoinExec) and self._pages(plan):
             return self._paged_join(plan, part)
@@ -357,12 +369,13 @@ class TorchEngine(NumpyEngine):
         return int(self.config.get(BALLISTA_TPU_MIN_DEVICE_ROWS) or 0)
 
     # ---- fused exchanges over the mesh ----------------------------------------------
-    def _try_fused_exchange(self, plan: P.PhysicalPlan, part: int) -> Optional[ColumnBatch]:
+    def _try_fused_exchange(self, plan: P.PhysicalPlan, part: int):
         """final-agg(Repartition(partial-agg(...))) as one program over the
         mesh: the partial aggregate per shard, its states hash-exchanged and
         merged by the final aggregate on their owning shard. None when the
         shape does not fit (the materialized exchange runs instead); for a
-        promoted exchange, ``IciDemoted`` with the reason."""
+        promoted exchange, ``IciDemoted`` with the reason. The partition as
+        ``_fused_part`` gives it."""
         if not (isinstance(plan, P.HashAggregateExec) and plan.mode == "final"):
             return None
         rep = plan.input
@@ -390,9 +403,10 @@ class TorchEngine(NumpyEngine):
             "collective aggregate declined at runtime",
             lambda: FX.run_fused_aggregate(self, plan, partial, self.mesh_devices))
 
-    def _try_fused_join(self, plan: P.HashJoinExec, part: int) -> Optional[ColumnBatch]:
+    def _try_fused_join(self, plan: P.HashJoinExec, part: int):
         """A partitioned join over two exchanges as one program over the mesh
-        (see fused_exchange.run_fused_join)."""
+        (see fused_exchange.run_fused_join); the partition as in
+        ``_try_fused_exchange``."""
         if id(plan) in self._gang_nodes:
             return self._fused_join_multihost(plan, part)
         ici_ids = [s.exchange_id for s in (plan.left, plan.right)
@@ -571,15 +585,16 @@ class TorchEngine(NumpyEngine):
                  moved["bytes"], moved["seconds"], group.transport, moved["setup_s"])
         return self._gang_slice(local, plan.output_partitions(), pid)
 
-    def _fused_part(self, key: int, part: int, metric: str, ici_ids, declined: str,
-                    run) -> Optional[ColumnBatch]:
+    def _fused_part(self, key: int, part: int, metric: str, ici_ids, declined: str, run):
         """Partition ``part`` of a fused program's result, run once per
-        execution. A program that returns None declined by design (a zero-row
-        or over-cap input, repeated sorted keys, rows past an exchange's
-        capacity), as does one an injected ``ici.exchange`` fault or a failed
-        shard stopped: ``op.FusedDeclined.count``. A stage the device cannot
-        express falls back as an unfused stage would. A promoted exchange
-        demotes (``declined`` its reason) instead of either."""
+        execution: a host batch, or partition 0 held on the device as the
+        program left it (``_on_host`` and ``_leaf_of`` read it). A program
+        that returns None declined by design (a zero-row or over-cap input,
+        repeated sorted keys, rows past an exchange's capacity), as does one
+        an injected ``ici.exchange`` fault or a failed shard stopped:
+        ``op.FusedDeclined.count``. A stage the device cannot express falls
+        back as an unfused stage would. A promoted exchange demotes
+        (``declined`` its reason) instead of either."""
         from ballista_tpu_torch.parallel import ShardFailed
         from ballista_tpu_torch.utils import faults
 
@@ -607,6 +622,76 @@ class TorchEngine(NumpyEngine):
             return self._ici_demote(ici_ids, declined)
         self._metric(metric, 1.0)
         return result[part]
+
+    def _hold(self, held, new) -> None:
+        """``new`` in the place of ``held``, a fused result's partition 0."""
+        for result in self._fused.values():
+            if isinstance(result, list) and result and result[0] is held:
+                result[0] = new
+
+    def _on_host(self, held) -> ColumnBatch:
+        """A fused program's partition for a host consumer: where it is held
+        on the device, fetched once and the host batch held in its place."""
+        if isinstance(held, ColumnBatch):
+            return held
+        batch = self._fetch(held)
+        self._hold(held, batch)
+        return batch
+
+    def _leaf_of(self, held) -> KT.EncodedBatch:
+        """A fused program's partition as a device stage's leaf. An output
+        held on the device is built there (``KT.encode_device_batches``, the
+        host encode's metadata exactly; ``op.FusedOutput.device_handoffs``)
+        and the encoding held in its place: the output leaves the device
+        once built, and the stage or a reader after it (a paged rerun, a
+        host fallback, the materialized exchange under a fused join that
+        declined) reads the encoding again. Where the card cannot build it
+        (a string without a shared dictionary or with NULLs, a float not
+        held as a scaled decimal, zero rows), it is fetched and encoded on
+        the host."""
+        if isinstance(held, KT.DeviceBatch):
+            with self._phase("ballista.fused.handoff"):
+                got = KT.encode_device_batches([held], 1, self._wait)
+            if got is not None and got[1] is not None:
+                enc = replace(got[1], arrays=got[2])
+                self._hold(held, enc)
+                self._metric("op.FusedOutput.device_handoffs", 1.0)
+                return enc
+        if isinstance(held, KT.EncodedBatch):
+            return held
+        return self._encode(self._on_host(held))
+
+    def _unhold(self, fetch: bool) -> None:
+        """A task ends, and the executor's stage engines outlive their tasks:
+        every fused output still held on the device leaves it, fetched for a
+        later task's reader, or (``fetch`` False, the task failed) dropped
+        with its result, which a later task runs again."""
+        for key, result in list(self._fused.items()):
+            if (isinstance(result, list) and result
+                    and isinstance(result[0], (KT.DeviceBatch, KT.EncodedBatch))):
+                if fetch:
+                    result[0] = self._fetch(result[0])
+                else:
+                    del self._fused[key]
+
+    def _held_bytes(self, leaves: Optional[dict] = None) -> int:
+        """On a card: the bytes of the fused outputs held on it for their
+        consumers, but for those ``leaves`` read (a stage's own leaves, which
+        its estimate counts)."""
+        if self.device.type != "cuda":
+            return 0
+        own = {id(leaf[1]) for leaf in (leaves or {}).values()}
+        total = 0
+        for result in self._fused.values():
+            held = result[0] if isinstance(result, list) and result else None
+            if isinstance(held, KT.DeviceBatch):
+                arrays = KT.flatten_device_batch(held)[0]
+            elif isinstance(held, KT.EncodedBatch) and id(held) not in own:
+                arrays = held.arrays
+            else:
+                continue
+            total += sum(t.numel() * t.element_size() for t in arrays)
+        return total
 
     def _decline(self, key: int) -> None:
         self._fused[key] = None
@@ -720,15 +805,17 @@ class TorchEngine(NumpyEngine):
             self._hbm_budget_v = MM.resolve_budget_bytes(self.config, detected, self.device)
         return self._hbm_budget_v
 
-    def _stage_budget(self) -> int:
+    def _stage_budget(self, leaves: Optional[dict] = None) -> int:
         """The budget a stage or fused program is admitted against: the
         device budget less the leaf caches' copies on this engine's card
         (``leaf_cache.resident_bytes``; none on the CPU, whose cached tensors
-        share host memory)."""
+        share host memory) and less the fused outputs held there for their
+        consumers (``_held_bytes``, but for the stage's own ``leaves``)."""
         budget = self._hbm_budget()
         if budget <= 0:
             return budget
-        return MM.admission_budget_bytes(budget, LC.resident_bytes(self))
+        return MM.admission_budget_bytes(
+            budget, LC.resident_bytes(self) + self._held_bytes(leaves))
 
     def _paged_join_enabled(self) -> bool:
         return bool(self.config.get(BALLISTA_ENGINE_PAGED_JOIN))
@@ -895,8 +982,9 @@ class TorchEngine(NumpyEngine):
                         self._last_dict_per_batch += 1
         min_rows = self._min_device_rows()
         if min_rows and leaves and sum(e.n_rows for _, e, _, _, _ in leaves.values()) < min_rows:
-            # every leaf is already on the host: a stage this small costs
-            # more in launches and copies than its host kernels take
+            # every leaf but a fused output built on the device is on the
+            # host: a stage this small costs more in launches and copies
+            # than its host kernels take
             return self._host_tiny_stage(plan, part, leaves)
 
         # the stage's device bytes, estimated from its real leaves: past the
@@ -907,7 +995,7 @@ class TorchEngine(NumpyEngine):
             self._metric_max("op.HbmEst.max_bytes", self._last_hbm_est)
             est = MM.estimate_eager_program_bytes(plan, leaves)
             self._metric_max("op.HbmEstEager.max_bytes", est)
-            budget = self._stage_budget()
+            budget = self._stage_budget(leaves)
             if (budget > 0 and est > self._paged_threshold() * budget and not self._in_paged
                     and self._paged_join_enabled()):
                 # never a join whose output a fused exchange supplied (an "out"
@@ -983,9 +1071,11 @@ class TorchEngine(NumpyEngine):
         torch.cuda.reset_peak_memory_stats(self.device)
         return torch.cuda.memory_allocated(self.device)
 
-    def _fetch(self, out_db) -> ColumnBatch:
+    def _fetch(self, out) -> ColumnBatch:
+        """A ``DeviceBatch``, or an encoding over device arrays, on the host."""
         with self._phase("ballista.stage.fetch", "op.DeviceFetch"):
-            batch = KT.to_host(out_db, self._wait)
+            batch = (KT.decode_encoded_batch(out, self._wait) if isinstance(out, KT.EncodedBatch)
+                     else KT.to_host(out, self._wait))
         self._metric(
             "op.DeviceFetch.bytes",
             float(sum(c.data.nbytes for c in batch.columns
@@ -998,9 +1088,10 @@ class TorchEngine(NumpyEngine):
         the plan as a MemoryScanExec (nothing upstream runs again)."""
 
         def scan_of(node: P.PhysicalPlan, enc) -> P.MemoryScanExec:
-            # a stand-in's rows are on the device only: its scan runs again
+            # a stand-in's rows are on the device only: its scan runs again;
+            # a fused output built on the device is fetched
             batch = (self._exec_child(node, part) if KT.stand_ins(enc)
-                     else KT.decode_encoded_batch(enc))
+                     else KT.decode_encoded_batch(enc, self._wait))
             parts = [batch if i == part else ColumnBatch.empty(enc.schema)
                      for i in range(max(node.output_partitions(), part + 1))]
             return P.MemoryScanExec(parts, enc.schema, ephemeral=True)
@@ -1049,6 +1140,9 @@ class TorchEngine(NumpyEngine):
             if kind == "out" and cache_key is not None:
                 out.extend(LC.resident_leaf(
                     self, enc, cache_key, lambda: self._encode(self._exec_child(node, part))))
+                continue
+            if KT.held_on_device(enc):
+                out.extend(arrays)  # a fused output built on the device
                 continue
             out.extend(LC.on_device(self, cache_key, arrays))
         return out
@@ -1106,7 +1200,7 @@ class TorchEngine(NumpyEngine):
             if isinstance(node, P.HashAggregateExec) and node.mode == "final":
                 fused = self._try_fused_exchange(node, part)
                 if fused is not None:
-                    leaves[id(node)] = ("out", self._encode(fused), None, None, node)
+                    leaves[id(node)] = ("out", self._leaf_of(fused), None, None, node)
                     return
             if isinstance(node, P.HashJoinExec) and self._pages(node):
                 # a paged join inside the stage: its output is a leaf
@@ -1117,7 +1211,7 @@ class TorchEngine(NumpyEngine):
                 if _fusable_partitioned_join(node):
                     fused = self._try_fused_join(node, part)
                     if fused is not None:
-                        leaves[id(node)] = ("out", self._encode(fused), None, None, node)
+                        leaves[id(node)] = ("out", self._leaf_of(fused), None, None, node)
                         return
                 visit(node.left)
                 enc, bk, max_dup, uid = self._prepared_build(node, part)

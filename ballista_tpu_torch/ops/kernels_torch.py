@@ -467,7 +467,13 @@ class EncodedBatch:
 
 def stand_ins(enc: EncodedBatch) -> bool:
     """Whether the encoding's arrays are storage-free stand-ins."""
-    return bool(enc.arrays) and isinstance(enc.arrays[-1], torch.Tensor)
+    return bool(enc.arrays) and isinstance(enc.arrays[-1], torch.Tensor) and enc.arrays[-1].is_meta
+
+
+def held_on_device(enc: EncodedBatch) -> bool:
+    """Whether the encoding's arrays are tensors with storage: one built on
+    the device (``encode_device_batches``) for a stage that reads it there."""
+    return bool(enc.arrays) and isinstance(enc.arrays[-1], torch.Tensor) and not stand_ins(enc)
 
 
 def with_stand_ins(enc: EncodedBatch) -> EncodedBatch:
@@ -798,22 +804,24 @@ def _sum_margin(s: float) -> int:
     return int(s * 1.001) + 1
 
 
-def decode_encoded_batch(enc: EncodedBatch) -> ColumnBatch:
+def decode_encoded_batch(enc: EncodedBatch, wait=contextlib.nullcontext) -> ColumnBatch:
     """Host ColumnBatch back out of an EncodedBatch (inverse of
-    ``encode_host_batch``)."""
+    ``encode_host_batch``); arrays held on the device are fetched first,
+    their wait inside ``wait()``."""
     import pyarrow as pa
 
-    valid = enc.arrays[-1].astype(bool)
+    arrays = fetch_to_host(enc.arrays, wait) if held_on_device(enc) else enc.arrays
+    valid = arrays[-1].astype(bool)
     cols = []
     i = 0
     for ci, ((dt, has_null, dictionary, scale), f) in enumerate(
         zip(enc.col_meta, enc.schema)
     ):
-        data = enc.arrays[i][valid]
+        data = arrays[i][valid]
         i += 1
         null = None
         if has_null:
-            null = enc.arrays[i][valid].astype(bool)
+            null = arrays[i][valid].astype(bool)
             i += 1
         if dt is DataType.STRING:
             vals = (dictionary[np.clip(data, 0, max(0, len(dictionary) - 1))]

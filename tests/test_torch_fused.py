@@ -354,10 +354,11 @@ def _final_agg_schema(ctx, qname):
 @pytest.mark.parametrize("qname", ["q1", "q3", "q5"])
 def test_warm_run_encodes_no_input_again(ctxs, monkeypatch, qname):
     """After a cold run, a warm run encodes only what the fused exchange
-    hands to the stages above it (the final aggregate's rows, one batch per
-    partition), runs only the fused program and the 16 stages above it, and
-    transfers under 1% of the cold run's bytes; after ``clear_caches()`` the
-    run is cold again."""
+    hands to the stages above it on the host (the final aggregate's 15 empty
+    partitions; its rows, in partition 0, are built on the device for their
+    stage: one hand-off), runs only the fused program and the 16 stages
+    above it, and transfers under 1% of the cold run's bytes; after
+    ``clear_caches()`` the run is cold again."""
     tctx, _ = ctxs[500_000]
     encoded = []
     real = KT.encode_host_batch
@@ -368,7 +369,7 @@ def test_warm_run_encodes_no_input_again(ctxs, monkeypatch, qname):
 
     monkeypatch.setattr(KT, "encode_host_batch", recording)
     final = _final_agg_schema(tctx, qname)
-    sent, encodes, stages = [], [], []
+    sent, encodes, stages, handoffs = [], [], [], []
     for _run in ("cold", "warm", "cleared"):
         if _run != "warm":
             TE.clear_caches()
@@ -376,9 +377,10 @@ def test_warm_run_encodes_no_input_again(ctxs, monkeypatch, qname):
         tctx.sql(_sql(qname)).collect()
         sent.append(tctx.last_engine_metrics["op.DeviceTransfer.bytes"])
         stages.append(tctx.last_engine_metrics["op.DeviceExecute.count"])
+        handoffs.append(tctx.last_engine_metrics["op.FusedOutput.device_handoffs"])
         encodes.append(list(encoded))
     cold, warm, cleared = encodes
-    assert warm == [final] * 16
+    assert warm == [final] * 15 and handoffs == [1, 1, 1]
     assert stages[1] == 1 + 16 and stages[0] == stages[2] > stages[1]
     assert any(s != final for s in cold) and sorted(cleared) == sorted(cold)
     assert sent[1] < 0.01 * sent[0] and sent[2] == sent[0]
@@ -745,7 +747,8 @@ def test_inner_join_over_repeated_right_keys_sorts_its_unique_left_side(repeat_c
 
     def recording(engine, join_plan, n_dev):
         out = real(engine, join_plan, n_dev)
-        joins.append((join_plan, out))
+        # the output's schema as the program left it (the engine releases it)
+        joins.append((join_plan, out[0].schema))
         return out
 
     monkeypatch.setattr(FX, "run_fused_join", recording)
@@ -754,9 +757,9 @@ def test_inner_join_over_repeated_right_keys_sorts_its_unique_left_side(repeat_c
     assert m.get("op.FusedJoin.swapped") == 1.0
     assert m.get("op.FusedIciJoin.count") == 16.0
     assert "op.FusedDeclined.count" not in m and "op.RepartitionExec.output_rows" not in m
-    [(join_plan, out)] = joins
+    [(join_plan, schema)] = joins
     want = [(f.name, f.dtype) for f in join_plan.schema()]
-    assert [(f.name, f.dtype) for f in out[0].schema] == want
+    assert [(f.name, f.dtype) for f in schema] == want
     assert [n for n, _ in want] == ["a.k", "a.s", "a.x", "b.k2", "b.y"]
     lk, rk = got.iloc[:, 0], got.iloc[:, 3]
     assert len(got) > 0 and lk.notna().all() and (lk == rk).all()

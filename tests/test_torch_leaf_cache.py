@@ -94,31 +94,34 @@ def _rotation(ctx, oracle_tables) -> dict:
 COUNTED = ("op.LeafCache.hits", "op.LeafCache.misses", "op.LeafCache.device_hits",
            "op.LeafCache.device_misses", "op.LeafCache.evicted_bytes",
            "op.FusedInput.device_builds", "op.FusedInput.host_builds", "op.FusedJoin.swapped",
-           "op.DeviceExecute.count")
+           "op.DeviceExecute.count", "op.FusedOutput.device_handoffs")
 # per case (capped, keeps_stand_ins, broadcast threshold): the COUNTED
 # values of the cold rotation and of two warm ones, recorded on the code
-# before the leaf caches' policy moved into engine/leaf_cache.py
-_UNCAPPED = [(6, 62, 6, 35, 0, 4, 0, 0, 92), (12, 0, 6, 0, 0, 0, 0, 0, 71),
-             (12, 0, 6, 0, 0, 0, 0, 0, 71)]
-_UNCAPPED_T0 = [(24, 102, 20, 67, 0, 9, 3, 1, 264), (52, 32, 34, 32, 0, 0, 3, 1, 241),
-                (52, 32, 34, 32, 0, 0, 3, 1, 241)]
+# before the leaf caches' policy moved into engine/leaf_cache.py; since
+# fused outputs are handed to their device consumers on the device, the
+# fused inputs above them are built there too (every host build became a
+# device build) and each such hand-off counts
+_UNCAPPED = [(6, 62, 6, 35, 0, 4, 0, 0, 92, 4), (12, 0, 6, 0, 0, 0, 0, 0, 71, 4),
+             (12, 0, 6, 0, 0, 0, 0, 0, 71, 4)]
+_UNCAPPED_T0 = [(24, 102, 20, 67, 0, 12, 0, 1, 264, 10), (52, 32, 34, 32, 0, 3, 0, 1, 241, 10),
+                (52, 32, 34, 32, 0, 3, 0, 1, 241, 10)]
 ROTATION_COUNTS = {
     (False, False, None): _UNCAPPED,
     (False, True, None): _UNCAPPED,
     (False, False, "0"): _UNCAPPED_T0,
     (False, True, "0"): _UNCAPPED_T0,
-    (True, False, None): [(6, 62, 6, 35, 15935360, 4, 0, 0, 92),
-                          (6, 62, 6, 35, 17688584, 4, 0, 0, 92),
-                          (6, 62, 6, 35, 17688584, 4, 0, 0, 92)],
-    (True, True, None): [(6, 62, 6, 35, 11035128, 4, 0, 0, 92),
-                         (6, 62, 6, 35, 12562560, 4, 0, 0, 92),
-                         (6, 62, 6, 35, 12562560, 4, 0, 0, 92)],
-    (True, False, "0"): [(24, 102, 20, 67, 20846592, 9, 3, 1, 264),
-                         (24, 102, 20, 67, 22000952, 9, 3, 1, 264),
-                         (24, 102, 20, 67, 22000952, 9, 3, 1, 264)],
-    (True, True, "0"): [(24, 102, 20, 67, 14038528, 9, 3, 1, 264),
-                        (24, 102, 20, 67, 14843312, 9, 3, 1, 264),
-                        (24, 102, 20, 67, 14843312, 9, 3, 1, 264)],
+    (True, False, None): [(6, 62, 6, 35, 15935360, 4, 0, 0, 92, 4),
+                          (6, 62, 6, 35, 17688584, 4, 0, 0, 92, 4),
+                          (6, 62, 6, 35, 17688584, 4, 0, 0, 92, 4)],
+    (True, True, None): [(6, 62, 6, 35, 11035128, 4, 0, 0, 92, 4),
+                         (6, 62, 6, 35, 12562560, 4, 0, 0, 92, 4),
+                         (6, 62, 6, 35, 12562560, 4, 0, 0, 92, 4)],
+    (True, False, "0"): [(24, 102, 20, 67, 20846592, 12, 0, 1, 264, 10),
+                         (24, 102, 20, 67, 22000952, 12, 0, 1, 264, 10),
+                         (24, 102, 20, 67, 22000952, 12, 0, 1, 264, 10)],
+    (True, True, "0"): [(24, 102, 20, 67, 14038528, 12, 0, 1, 264, 10),
+                        (24, 102, 20, 67, 14843312, 12, 0, 1, 264, 10),
+                        (24, 102, 20, 67, 14843312, 12, 0, 1, 264, 10)],
 }
 
 
