@@ -499,6 +499,9 @@ class BallistaContext:
 
             self.last_engine_metrics = {}
             result = execute_remote(self, plan)
+            # the client's and the job's counters (execute_remote), with the
+            # query's planning, as a standalone query reads them
+            self.last_engine_metrics = dict(self.last_engine_metrics, **metrics)
             if rkey is not None:
                 self._get_result_cache().put(rkey, result)
             return result

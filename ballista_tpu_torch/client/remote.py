@@ -5,6 +5,12 @@ Reference analog: ``DistributedQueryExec``
 serialize the logical plan, ``ExecuteQuery``, poll ``GetJobStatus`` every
 100ms, then Flight-fetch every output partition (local-file fast path when
 co-located).
+
+The query's counters become the context's ``last_engine_metrics``: the
+client's submit (``op.ClientSubmit``), polls (``op.ClientPoll``: each RPC
+and the sleep after it), result fetch (``op.ResultFetch``) and the job's run
+as the scheduler reports it (``op.Job.run_s``, accepted to done), with the
+job's stage metrics the scheduler folded (``GetJobMetrics``).
 """
 from __future__ import annotations
 
@@ -65,12 +71,10 @@ def execute_remote(ctx, plan, timeout_s: float = None) -> pa.Table:
             )
         table_defs.append(json.dumps(meta.to_dict()).encode())
 
-    # one session per context, created lazily (reference: CreateSession /
-    # ExecuteQuery.session_id flow)
-    if getattr(ctx, "_session_id", None) is None:
-        ctx._session_id = stub.CreateSession(
-            pb.CreateSessionParams(settings=ctx.config.settings()), timeout=30
-        ).session_id
+    counters: dict = {}
+
+    def add(key: str, value: float) -> None:
+        counters[key] = counters.get(key, 0.0) + value
 
     # root client span; trace context rides the submit's settings map and
     # comes back as the job's TraceStore key. ballista.trace.enabled=false
@@ -84,9 +88,15 @@ def execute_remote(ctx, plan, timeout_s: float = None) -> pa.Table:
         settings[obs.TRACE_ID_PROP] = trace_id
         settings[obs.PARENT_PROP] = root.span_id
 
-    with collector.span(
+    with obs.Phase("ballista.client.submit", "op.ClientSubmit", add), collector.span(
         "submit", trace_id=trace_id, parent_id=root.span_id, service="client"
     ):
+        # one session per context, created lazily (reference: CreateSession /
+        # ExecuteQuery.session_id flow)
+        if getattr(ctx, "_session_id", None) is None:
+            ctx._session_id = stub.CreateSession(
+                pb.CreateSessionParams(settings=ctx.config.settings()), timeout=30
+            ).session_id
         result = stub.ExecuteQuery(
             pb.ExecuteQueryParams(
                 logical_plan=encode_logical(plan),
@@ -128,10 +138,12 @@ def execute_remote(ctx, plan, timeout_s: float = None) -> pa.Table:
 
     deadline = time.time() + timeout_s
     try:
-        return _await_and_fetch(
+        table = _await_and_fetch(
             ctx, stub, job_id, deadline, timeout_s,
-            collector, trace_id, root, await_span, timeout_src,
+            collector, trace_id, root, await_span, timeout_src, add,
         )
+        ctx.last_engine_metrics = dict(_job_metrics(stub, job_id), **counters)
+        return table
     finally:
         finalize()
 
@@ -139,74 +151,81 @@ def execute_remote(ctx, plan, timeout_s: float = None) -> pa.Table:
 def _await_and_fetch(
     ctx, stub, job_id, deadline, timeout_s,
     collector, trace_id, root, await_span,
-    timeout_src: str = "ballista.client.query_timeout_s",
+    timeout_src: str = "ballista.client.query_timeout_s", add=lambda _key, _value: None,
 ) -> pa.Table:
+    """Polls the job to its end, then fetches its result; with ``add``
+    counts each poll (its RPC and its sleep: ``op.ClientPoll``), the fetch
+    (``op.ResultFetch``) and the job's run as the scheduler reports it
+    (``op.Job.run_s``)."""
     from ballista_tpu_torch.obs import tracing as obs
 
     poll_backoff = POLL_INTERVAL_S
     unavailable_streak = 0
     while True:
-        try:
-            # cap each poll at the remaining JOB deadline: a hanging RPC must
-            # not overshoot the job timeout by a full 30s
-            status = stub.GetJobStatus(
-                pb.GetJobStatusParams(job_id=job_id),
-                timeout=min(30.0, max(deadline - time.time(), 1.0)),
-            ).status
-        except grpc.RpcError as e:
-            # a busy scheduler (1-core host crunching a heavy stage) or a
-            # transient network blip must not kill a long-running job whose
-            # state lives server-side — keep polling until the JOB deadline
-            # (reference: the client's bounded-retry poll loop)
-            code = e.code() if hasattr(e, "code") else None
-            if code not in (
-                grpc.StatusCode.DEADLINE_EXCEEDED, grpc.StatusCode.UNAVAILABLE
-            ):
-                raise
-            if code == grpc.StatusCode.UNAVAILABLE:
-                # DEADLINE_EXCEEDED proves the server is alive-but-busy and
-                # is worth waiting out; UNAVAILABLE means we cannot connect
-                # at all — tolerate a restart window, then fail fast instead
-                # of burning the whole job timeout against a dead scheduler
-                unavailable_streak += 1
-                if unavailable_streak > 20:
+        with obs.Phase("ballista.client.poll", "op.ClientPoll", add):
+            try:
+                # cap each poll at the remaining JOB deadline: a hanging RPC must
+                # not overshoot the job timeout by a full 30s
+                status = stub.GetJobStatus(
+                    pb.GetJobStatusParams(job_id=job_id),
+                    timeout=min(30.0, max(deadline - time.time(), 1.0)),
+                ).status
+            except grpc.RpcError as e:
+                # a busy scheduler (1-core host crunching a heavy stage) or a
+                # transient network blip must not kill a long-running job whose
+                # state lives server-side — keep polling until the JOB deadline
+                # (reference: the client's bounded-retry poll loop)
+                code = e.code() if hasattr(e, "code") else None
+                if code not in (
+                    grpc.StatusCode.DEADLINE_EXCEEDED, grpc.StatusCode.UNAVAILABLE
+                ):
+                    raise
+                if code == grpc.StatusCode.UNAVAILABLE:
+                    # DEADLINE_EXCEEDED proves the server is alive-but-busy and
+                    # is worth waiting out; UNAVAILABLE means we cannot connect
+                    # at all — tolerate a restart window, then fail fast instead
+                    # of burning the whole job timeout against a dead scheduler
+                    unavailable_streak += 1
+                    if unavailable_streak > 20:
+                        raise BallistaError(
+                            f"job {job_id}: scheduler unreachable after "
+                            f"{unavailable_streak} consecutive attempts"
+                        ) from e
+                else:
+                    unavailable_streak = 0
+                if time.time() > deadline:
+                    _cancel_quietly(stub, job_id)
                     raise BallistaError(
-                        f"job {job_id}: scheduler unreachable after "
-                        f"{unavailable_streak} consecutive attempts"
+                        f"job {job_id} CANCELLED: exceeded client await budget "
+                        f"of {timeout_s:g}s [{timeout_src}] (last poll: {code})"
                     ) from e
-            else:
-                unavailable_streak = 0
+                log.warning("job %s status poll failed (%s); retrying", job_id, code)
+                time.sleep(poll_backoff)
+                poll_backoff = min(poll_backoff * 2, 5.0)
+                continue
+            poll_backoff = POLL_INTERVAL_S
+            unavailable_streak = 0
+            if status.state == "SUCCESSFUL":
+                # submission-time plan analyzer warnings ride the job status;
+                # surface them without failing the query
+                ctx.last_warnings = list(status.warnings)
+                for w in status.warnings:
+                    log.warning("job %s plan verifier: %s", job_id, w)
+                break
+            if status.state in ("FAILED", "CANCELLED", "NOT_FOUND"):
+                raise BallistaError(f"job {job_id} {status.state}: {status.error}")
             if time.time() > deadline:
+                # clean CANCELLED naming the budget that fired, with the server-
+                # side job actually cancelled so its tasks stop burning slots
                 _cancel_quietly(stub, job_id)
                 raise BallistaError(
                     f"job {job_id} CANCELLED: exceeded client await budget "
-                    f"of {timeout_s:g}s [{timeout_src}] (last poll: {code})"
-                ) from e
-            log.warning("job %s status poll failed (%s); retrying", job_id, code)
-            time.sleep(poll_backoff)
-            poll_backoff = min(poll_backoff * 2, 5.0)
-            continue
-        poll_backoff = POLL_INTERVAL_S
-        unavailable_streak = 0
-        if status.state == "SUCCESSFUL":
-            # submission-time plan analyzer warnings ride the job status;
-            # surface them without failing the query
-            ctx.last_warnings = list(status.warnings)
-            for w in status.warnings:
-                log.warning("job %s plan verifier: %s", job_id, w)
-            break
-        if status.state in ("FAILED", "CANCELLED", "NOT_FOUND"):
-            raise BallistaError(f"job {job_id} {status.state}: {status.error}")
-        if time.time() > deadline:
-            # clean CANCELLED naming the budget that fired, with the server-
-            # side job actually cancelled so its tasks stop burning slots
-            _cancel_quietly(stub, job_id)
-            raise BallistaError(
-                f"job {job_id} CANCELLED: exceeded client await budget "
-                f"of {timeout_s:g}s [{timeout_src}]"
-            )
-        time.sleep(POLL_INTERVAL_S)
+                    f"of {timeout_s:g}s [{timeout_src}]"
+                )
+            time.sleep(POLL_INTERVAL_S)
     await_span.finish()
+    if status.ended_at_ms > 0:
+        add("op.Job.run_s", max(0.0, status.ended_at_ms - status.queued_at_ms) / 1000.0)
 
     schema = schema_from_json(json.loads(status.result_schema.decode()))
     locations = [
@@ -229,7 +248,8 @@ def _await_and_fetch(
     from ballista_tpu_torch.config import BALLISTA_SHUFFLE_OBJECT_STORE_URL
 
     os_url = str(ctx.config.get(BALLISTA_SHUFFLE_OBJECT_STORE_URL) or "")
-    with collector.span(
+    add("op.ResultFetch.bytes", float(sum(loc.num_bytes for loc in status.partition_locations)))
+    with obs.Phase("ballista.client.fetch", "op.ResultFetch", add), collector.span(
         "fetch-results", trace_id=trace_id, parent_id=root.span_id,
         service="client", attrs={"partitions": len(locations)},
     ) as fetch_span:
@@ -249,6 +269,18 @@ def _await_and_fetch(
     if not tables:
         return ColumnBatch.empty(schema).to_arrow()
     return pa.concat_tables(tables)
+
+
+def _job_metrics(stub, job_id: str) -> dict:
+    """The job's counters as the scheduler folded them over its stages (the
+    executors' task metrics and the scheduler's own); ``{}`` from a
+    scheduler that does not serve them."""
+    try:
+        raw = stub.GetJobMetrics(pb.GetJobStatusParams(job_id=job_id), timeout=10).trace
+    except grpc.RpcError as e:
+        log.debug("job metrics of %s unavailable: %s", job_id, e)
+        return {}
+    return json.loads(raw.decode()) if raw else {}
 
 
 def _cancel_quietly(stub, job_id: str) -> None:

@@ -1048,6 +1048,10 @@ class ExecutorConfig:
     # the torch engine's device: None means "cuda", which the executor
     # refuses to start without; "cpu" runs the torch engine on the host
     device: Optional[str] = None
+    # the fraction of its card this executor plans for, in (0, 1]
+    # (engine/memory_model.set_device_share): executor processes sharing one
+    # card outside a mesh group take a share each
+    device_share: float = 1.0
     advertise_host: Optional[str] = None
     # mesh-group membership (parallel/multihost.py): executor processes
     # sharing one collective group; fused stages gang-schedule across it

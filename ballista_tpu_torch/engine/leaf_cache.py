@@ -16,7 +16,9 @@ tensor in place.
 - ``DEV`` is sized once per process, on the first CUDA lookup, to
   ``memory_model.DEVICE_CACHE_SHARE`` of the device budget. A copy makes
   room before it allocates (``_room_for``), and a stage is admitted against
-  the budget less what ``DEV`` holds on its card (``resident_bytes``).
+  the budget less what ``DEV`` holds on its card (``resident_bytes``), after
+  a stage that would not fit beside it has taken its room from it
+  (``make_room``: unpinned copies go first).
 - ``ballista.tpu.pin_device_cache`` pins a fused input's shards (``_pin``).
 - Counted in ``op.LeafCache.{hits,misses,device_hits,device_misses,
   evicted_bytes,device_capacity.max_bytes}``.
@@ -150,21 +152,38 @@ def _room_for(engine, nbytes: float) -> None:
             DEV.evict_for(nbytes)
 
 
+def make_room(engine, room: float) -> None:
+    """Evicts unpinned device copies on the engine's card, least recently
+    used first, until at most ``room`` bytes of copies stay there
+    (``ballista.leaf.evict``): a stage that would not fit beside the cache
+    takes its room from the cache before the cache's bytes count against it.
+    Nothing on the CPU."""
+    if engine.device.type != "cuda":
+        return
+    card = _card_index(engine.device)
+    excess = _resident_on_card(card) - max(0.0, room)
+    if excess > 0:
+        with engine._phase("ballista.leaf.evict"):
+            _call(engine, lambda: DEV.evict(excess, lambda key: _key_card(key[1]) == card))
+
+
 def _card_index(device) -> int:
     """The index of the card ``device`` names (bare ``cuda``: the current)."""
     d = torch.device(device)
     return d.index if d.index is not None else torch.cuda.current_device()
 
 
+def _key_card(dev: str) -> Optional[int]:
+    """The card index a device-cache key's device string names (None: not
+    CUDA)."""
+    if dev not in _KEY_CARDS:
+        _KEY_CARDS[dev] = _card_index(dev) if dev.startswith("cuda") else None
+    return _KEY_CARDS[dev]
+
+
 def _resident_on_card(card: int) -> float:
     """The bytes of ``DEV``'s copies on CUDA card ``card``."""
-    def on_card(key) -> bool:
-        dev = key[1]
-        if dev not in _KEY_CARDS:
-            _KEY_CARDS[dev] = _card_index(dev) if dev.startswith("cuda") else None
-        return _KEY_CARDS[dev] == card
-
-    return DEV.total_weight(on_card)
+    return DEV.total_weight(lambda key: _key_card(key[1]) == card)
 
 
 def resident_bytes(engine) -> float:

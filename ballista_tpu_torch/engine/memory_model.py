@@ -253,14 +253,43 @@ def fmt_bytes(n: float) -> str:
 
 
 # ---- budget resolution ------------------------------------------------------------
+# total memory of each CUDA device probed (``torch.cuda.mem_get_info``), by name
 _DETECTED: dict[str, int] = {}
+# the fraction of its card this process plans for (an executor's
+# ``--device-share``): two executor processes on one card take half each
+_DEVICE_SHARE = 1.0
+
+
+def set_device_share(share: float) -> None:
+    """This process plans for ``share`` of its card, in (0, 1]: set once, by
+    an executor at start, before any engine detects a budget."""
+    global _DEVICE_SHARE
+    share = float(share)
+    if not 0.0 < share <= 1.0:
+        raise ValueError(f"device share {share!r}: a fraction in (0, 1]")
+    _DEVICE_SHARE = share
+
+
+def device_share() -> float:
+    """The fraction of its card this process plans for (1.0 unless set)."""
+    return _DEVICE_SHARE
+
+
+def card_budget_bytes(total_bytes: int, share: Optional[float] = None) -> int:
+    """The budget of a card of ``total_bytes``: :data:`DEFAULT_BUDGET_FRACTION`
+    of it, times ``share`` (default the process's :func:`device_share`). The
+    engine (from its probe) and the scheduler (from the registered card and
+    share) both compute it here."""
+    share = _DEVICE_SHARE if share is None else float(share)
+    return int(int(total_bytes) * DEFAULT_BUDGET_FRACTION * share)
 
 
 def detect_device_budget_bytes(device=None) -> int:
     """The budget of a CUDA device: its total memory
-    (``torch.cuda.mem_get_info``) times :data:`DEFAULT_BUDGET_FRACTION`,
-    probed once per device. 0 for any other device: a CPU engine has no
-    device budget. Only a caller that runs on that device may call this."""
+    (``torch.cuda.mem_get_info``, probed once per device) through
+    :func:`card_budget_bytes`, so it follows the process's share. 0 for any
+    other device: a CPU engine has no device budget. Only a caller that runs
+    on that device may call this."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         return 0
@@ -269,8 +298,8 @@ def detect_device_budget_bytes(device=None) -> int:
     key = str(dev)
     if key not in _DETECTED:
         _free, total = torch.cuda.mem_get_info(dev)
-        _DETECTED[key] = int(total * DEFAULT_BUDGET_FRACTION)
-    return _DETECTED[key]
+        _DETECTED[key] = int(total)
+    return card_budget_bytes(_DETECTED[key])
 
 
 # total device memory (``torch.cuda.mem_get_info``'s second value) of the cards
@@ -287,41 +316,48 @@ def shard_budget_bytes(card_bytes: int, shards_per_card: int) -> int:
     return int(card_bytes) // max(1, int(shards_per_card))
 
 
-def budget_from_device_kinds(kinds, shards_per_card: int = 1) -> int:
+def budget_from_device_kinds(kinds, shards_per_card: int = 1, share: float = 1.0) -> int:
     """The scheduler's budget from its executors' REGISTERED device kinds
     (``ExecutorSpecification.device_kind``: a torch executor on a card
-    registers the card's name): :data:`DEVICE_MEMORY_BYTES` times
-    :data:`DEFAULT_BUDGET_FRACTION`, as :func:`detect_device_budget_bytes`
-    computes it on that card, split between ``shards_per_card`` mesh shards
+    registers the card's name): :data:`DEVICE_MEMORY_BYTES` through
+    :func:`card_budget_bytes` at the executors' least registered ``share``
+    of a card, as :func:`detect_device_budget_bytes` computes it in such an
+    executor, split between ``shards_per_card`` mesh shards
     (:func:`shard_budget_bytes`), so admission, promotion and the
     executor's engine plan against one number; the least over the kinds
     that map (a mixed cluster plans for its smallest card). 0 when none
     maps (a CPU or host executor, a card not in the table): no budget at
     admission. The scheduler never probes a device of its own."""
-    budgets = [int(DEVICE_MEMORY_BYTES[k] * DEFAULT_BUDGET_FRACTION)
+    budgets = [card_budget_bytes(DEVICE_MEMORY_BYTES[k], share)
                for k in set(kinds) if k in DEVICE_MEMORY_BYTES]
     return shard_budget_bytes(min(budgets), shards_per_card) if budgets else 0
 
 
-def resolve_budget_bytes(config, detected_bytes: Optional[int] = None, device=None) -> int:
+def resolve_budget_bytes(config, detected_bytes: Optional[int] = None, device=None,
+                         shared: Optional[bool] = None) -> int:
     """The budget the governor plans against:
-    ``ballista.engine.hbm_budget_bytes`` > 0 wins; 0 auto-detects — from
-    ``detected_bytes`` when the caller supplies one, else from ``device``
-    (the standalone path, where the engine and its card share the process);
-    < 0 turns the governor off."""
+    ``ballista.engine.hbm_budget_bytes`` > 0 wins, capped at the detected
+    budget where that is a share below 1 of a card (``shared``; default
+    whether this process's :func:`device_share` is: the executor knows its
+    card, the client does not); 0 auto-detects — from ``detected_bytes``
+    when the caller supplies one, else from ``device`` (the standalone path,
+    where the engine and its card share the process); < 0 turns the
+    governor off."""
     from ballista_tpu_torch.config import BALLISTA_ENGINE_HBM_BUDGET_BYTES
 
     try:
         raw = int(config.get(BALLISTA_ENGINE_HBM_BUDGET_BYTES) or 0)
     except Exception:  # noqa: BLE001 - unknown key on minimal configs
         raw = 0
-    if raw > 0:
-        return raw
     if raw < 0:
         return 0
-    if detected_bytes is not None:
-        return max(0, int(detected_bytes))
-    return detect_device_budget_bytes(device)
+    if raw == 0 or (_DEVICE_SHARE < 1.0 if shared is None else shared):
+        detected = (max(0, int(detected_bytes)) if detected_bytes is not None
+                    else detect_device_budget_bytes(device))
+        if raw == 0 or detected <= 0:
+            return raw or detected
+        return min(raw, detected)
+    return raw
 
 
 def device_cache_bytes(budget_bytes: int) -> int:
@@ -342,9 +378,10 @@ def admission_budget_bytes(budget_bytes: int, resident_bytes: float) -> int:
 
 def govern_with_config(
     plan: P.PhysicalPlan, config, n_devices: int,
-    detected_budget_bytes: Optional[int] = None, device=None,
+    detected_budget_bytes: Optional[int] = None, device=None, shared: Optional[bool] = None,
 ) -> tuple[P.PhysicalPlan, Optional["MemoryReport"]]:
-    """The call sites' entry: resolve the budget and the paged-join and
+    """The call sites' entry: resolve the budget (``shared``: the detected
+    budget is a share of a card, :func:`resolve_budget_bytes`) and the paged-join and
     solver knobs from a session config and run :func:`govern_plan`. Returns
     ``(plan, None)`` untouched when no budget applies (knob < 0, or 0 with
     nothing detected)."""
@@ -354,7 +391,7 @@ def govern_with_config(
     )
     from ballista_tpu_torch.parallel.mesh import MAX_SHUFFLE_PARTITIONS
 
-    budget = resolve_budget_bytes(config, detected_budget_bytes, device)
+    budget = resolve_budget_bytes(config, detected_budget_bytes, device, shared)
     if budget <= 0:
         return plan, None
     try:

@@ -354,16 +354,39 @@ class NumpyEngine(ExecutionEngine):
         )
         consolidate, pooled = self._dataplane_opts()
         stats = FeedStats()
+        locations = plan.partition_locations[part]
+        self._note_shuffle_read(locations)
+        chunks = iter_shuffle_partition(
+            locations, chunk_rows=chunk_rows,
+            spill_dir=spill, object_store_url=self._object_store_url(),
+            consolidate=consolidate, pooled=pooled,
+            codec=self._shuffle_codec(),
+            pipeline_wait_s=self._pipeline_wait_s(), feed_stats=stats,
+        )
         try:
-            yield from iter_shuffle_partition(
-                plan.partition_locations[part], chunk_rows=chunk_rows,
-                spill_dir=spill, object_store_url=self._object_store_url(),
-                consolidate=consolidate, pooled=pooled,
-                codec=self._shuffle_codec(),
-                pipeline_wait_s=self._pipeline_wait_s(), feed_stats=stats,
-            )
+            while True:
+                # only the reader's own time: the consumer runs between chunks
+                with obs.Phase("ballista.shuffle.read") as ph:
+                    chunk = next(chunks, None)
+                self._metric("op.ShuffleRead.time_s", ph.stop())
+                if chunk is None:
+                    return
+                yield chunk
         finally:
+            chunks.close()
             self._note_feed_stats(stats)
+
+    def _note_shuffle_read(self, locations: list) -> None:
+        """A shuffle read's bytes (``op.ShuffleRead.bytes``), and of them
+        those fetched over Flight (``.remote_bytes``: a piece whose path
+        does not exist here, the reader's own test)."""
+        import os
+
+        sizes = [(int(loc.get("num_bytes", 0) or 0),
+                  not (loc.get("path") and os.path.exists(loc["path"])))
+                 for loc in locations]
+        self._metric("op.ShuffleRead.bytes", float(sum(b for b, _ in sizes)))
+        self._metric("op.ShuffleRead.remote_bytes", float(sum(b for b, far in sizes if far)))
 
     def _dataplane_opts(self) -> tuple[bool, bool]:
         from ballista_tpu_torch.config import (
@@ -670,14 +693,18 @@ class NumpyEngine(ExecutionEngine):
 
         consolidate, pooled = self._dataplane_opts()
         stats = FeedStats()
+        self._note_shuffle_read(plan.partition_locations[part])
         try:
-            return read_shuffle_partition(
-                plan.partition_locations[part], plan.schema(),
-                object_store_url=self._object_store_url(),
-                consolidate=consolidate, pooled=pooled,
-                codec=self._shuffle_codec(),
-                pipeline_wait_s=self._pipeline_wait_s(), feed_stats=stats,
-            )
+            with self._phase("ballista.shuffle.read") as ph:
+                batch = read_shuffle_partition(
+                    plan.partition_locations[part], plan.schema(),
+                    object_store_url=self._object_store_url(),
+                    consolidate=consolidate, pooled=pooled,
+                    codec=self._shuffle_codec(),
+                    pipeline_wait_s=self._pipeline_wait_s(), feed_stats=stats,
+                )
+            self._metric("op.ShuffleRead.time_s", ph.stop())
+            return batch
         finally:
             self._note_feed_stats(stats)
 

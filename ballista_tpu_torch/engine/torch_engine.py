@@ -805,17 +805,23 @@ class TorchEngine(NumpyEngine):
             self._hbm_budget_v = MM.resolve_budget_bytes(self.config, detected, self.device)
         return self._hbm_budget_v
 
-    def _stage_budget(self, leaves: Optional[dict] = None) -> int:
+    def _stage_budget(self, leaves: Optional[dict] = None, need: float = 0.0) -> int:
         """The budget a stage or fused program is admitted against: the
         device budget less the leaf caches' copies on this engine's card
         (``leaf_cache.resident_bytes``; none on the CPU, whose cached tensors
         share host memory) and less the fused outputs held there for their
-        consumers (``_held_bytes``, but for the stage's own ``leaves``)."""
+        consumers (``_held_bytes``, but for the stage's own ``leaves``). A
+        stage that ``need``s more than that first takes its room from the
+        cache's unpinned copies (``leaf_cache.make_room``)."""
         budget = self._hbm_budget()
         if budget <= 0:
             return budget
-        return MM.admission_budget_bytes(
-            budget, LC.resident_bytes(self) + self._held_bytes(leaves))
+        held = self._held_bytes(leaves)
+        resident = LC.resident_bytes(self)
+        if need > budget - held - resident:
+            LC.make_room(self, budget - held - need)
+            resident = LC.resident_bytes(self)
+        return MM.admission_budget_bytes(budget, resident + held)
 
     def _paged_join_enabled(self) -> bool:
         return bool(self.config.get(BALLISTA_ENGINE_PAGED_JOIN))
@@ -883,7 +889,10 @@ class TorchEngine(NumpyEngine):
 
         probe = self._exec(plan.left, part)
         build = self._exec(plan.right, part)
-        budget = self._stage_budget()
+        # passes are solved against the budget alone, never past it: the
+        # leaf caches' copies on the card make room for a pass instead
+        # (``_stage_budget``'s need), so a full cache cannot multiply them
+        budget = self._hbm_budget()
         limit = int(budget * self._paged_threshold()) if budget > 0 else 0
         # passes are sized with the build's real duplicate runs (a key's
         # duplicates share a bucket, so splitting never shortens them),
@@ -895,12 +904,17 @@ class TorchEngine(NumpyEngine):
             if len(bk):
                 _, counts = np.unique(bk, return_counts=True)
                 dup = min(int(counts.max()), self._build_dup_cap(plan, build))
+
+        def pass_bytes(n: int) -> int:
+            return MM.estimate_join_program(
+                probe.schema, max(1, probe.num_rows // n),
+                build.schema, max(1, build.num_rows // n), plan.how, max_dup=dup)
+
         passes = 2
-        while limit and passes < MM.MAX_PAGED_PASSES and MM.estimate_join_program(
-                probe.schema, max(1, probe.num_rows // passes),
-                build.schema, max(1, build.num_rows // passes), plan.how,
-                max_dup=dup) > limit:
+        while limit and passes < MM.MAX_PAGED_PASSES and pass_bytes(passes) > limit:
             passes <<= 1
+        if limit:
+            self._stage_budget(need=pass_bytes(passes) / self._paged_threshold())
         codec = str(self.config.get(BALLISTA_SHUFFLE_COMPRESSION) or "")
         p_spill = PartitionSpill(passes, [l for l, _ in plan.on], salted=True,
                                  compression=codec)
@@ -995,7 +1009,7 @@ class TorchEngine(NumpyEngine):
             self._metric_max("op.HbmEst.max_bytes", self._last_hbm_est)
             est = MM.estimate_eager_program_bytes(plan, leaves)
             self._metric_max("op.HbmEstEager.max_bytes", est)
-            budget = self._stage_budget(leaves)
+            budget = self._stage_budget(leaves, need=est / self._paged_threshold())
             if (budget > 0 and est > self._paged_threshold() * budget and not self._in_paged
                     and self._paged_join_enabled()):
                 # never a join whose output a fused exchange supplied (an "out"

@@ -7,6 +7,13 @@ Reference analog: ``ballista-executor`` (``executor/src/bin/main.rs`` +
 ``--device cpu`` is given; without CUDA the executor exits with status 2 and
 says why. ``--backend numpy`` runs the host engine.
 
+``--device-share F`` (``BALLISTA_EXECUTOR_DEVICE_SHARE``) makes the process
+plan for the fraction F of its card: its engines' budget, stage admission,
+paging and the device leaf cache take F of what they would take alone, and
+the scheduler admits its stages against the same share. Two executors on
+one card give 0.5 each. A mesh-group member refuses a share below 1 (the
+group already splits its cards between its members).
+
 The ``--mesh-group-*`` flags make the executor a member of a mesh group
 (``parallel/multihost.py``): every member names the same group id, size and
 coordinator (host:port of the store that member 0 hosts), its own process
@@ -57,6 +64,12 @@ def main() -> None:
     p.add_argument("--device", default=env("BALLISTA_EXECUTOR_DEVICE", None),
                    help="the torch engine's device (default cuda; 'cpu' runs "
                         "it on the host)")
+    p.add_argument("--device-share", type=float,
+                   default=float(env("BALLISTA_EXECUTOR_DEVICE_SHARE", "1.0")),
+                   help="the fraction of its card this executor plans for, in (0, 1]: "
+                        "its device budget, stage admission and device leaf cache "
+                        "take that share (0.5 for each of two executors on one "
+                        "card); default 1.0")
     p.add_argument("--advertise-host", default=env("BALLISTA_EXECUTOR_ADVERTISE_HOST", None))
     # mesh-group membership: executor processes whose fused stages run as one
     # collective program across them (gang-scheduled by the scheduler)
@@ -119,6 +132,7 @@ def main() -> None:
         ),
         backend=args.backend,
         device=args.device,
+        device_share=args.device_share,
         advertise_host=args.advertise_host,
         mesh_group_id=args.mesh_group_id,
         mesh_group_coordinator=args.mesh_group_coordinator,

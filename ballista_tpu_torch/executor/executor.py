@@ -21,6 +21,9 @@ launches they took on the card (``op.GroupedSums.launches``, 0 on the CPU)
 and their least bytes (``op.GroupedSums.min_bytes``), its mesh programs'
 shard threads included, and those calls by shape
 (``op.GroupedSums.shape.<rows>x<k>x<columns>.<dtype>``), with its metrics.
+Every task reports its shuffle write (``op.ShuffleWrite.{time_s,bytes,
+pieces}``); its engine's counters include its shuffle reads
+(``op.ShuffleRead.{time_s,bytes,remote_bytes}``).
 """
 from __future__ import annotations
 
@@ -228,6 +231,7 @@ class Executor:
             )
             status.metrics["rows"] = float(input_rows)
             status.metrics["output_bytes"] = float(sum(s.num_bytes for s in stats))
+            status.metrics.update(shuffle_write_metrics(stats))
             status.metrics["exec_time_s"] = time.time() - start
             # atomic snapshot (dict() under the GIL): background compile /
             # prefetch threads may still insert keys while we harvest
@@ -525,6 +529,18 @@ def _dir_bytes(path: str) -> int:
             except OSError:
                 pass
     return total
+
+
+def shuffle_write_metrics(stats: list) -> dict[str, float]:
+    """A task's shuffle write (``ballista.shuffle.write``): its time in the
+    writer (the split, the IPC encode and the file writes; each piece's
+    stats carry the time to its seal, so the last is the whole), the bytes
+    of its pieces and their number."""
+    return {
+        "op.ShuffleWrite.time_s": max((s.write_time_s for s in stats), default=0.0),
+        "op.ShuffleWrite.bytes": float(sum(s.num_bytes for s in stats)),
+        "op.ShuffleWrite.pieces": float(len(stats)),
+    }
 
 
 def _grouped_sums_record(before: Optional[dict] = None) -> dict:

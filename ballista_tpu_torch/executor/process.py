@@ -21,7 +21,12 @@ names another, and refuses to start when CUDA is asked for and missing; its
 fused and promoted programs run over the process's mesh of shards
 (``parallel``), one host thread a shard. It registers the mesh's shard count
 and the card's name as its device kind, which the scheduler maps to the
-card's memory budget at admission. An executor in a mesh group
+card's memory budget at admission. An executor given a share of its card
+(``device_share`` below 1: several executors on one card) sets it for its
+process before any engine plans (``memory_model.set_device_share``) and
+registers it after its mesh shape (``"1x1@0.5"``), so its engines and the
+scheduler plan for that share; a mesh-group member refuses one. An
+executor in a mesh group
 (``parallel/multihost.py``) joins the group in ``start()``, before any
 device use and before it registers; the scheduler then gang-schedules fused
 stages onto the complete group, and each member registers its card's shard
@@ -87,6 +92,18 @@ class ExecutorProcess:
                     f"mesh group {c.mesh_group_id!r} needs the torch backend, a "
                     "coordinator, a size of at least 2 and a process id below it"
                 )
+        if not 0.0 < self.config.device_share <= 1.0:
+            raise BallistaError(
+                f"device share {self.config.device_share!r}: a fraction in (0, 1]")
+        if self.config.device_share < 1.0:
+            if self.config.mesh_group_id:
+                raise BallistaError(
+                    f"mesh group {self.config.mesh_group_id!r} splits its cards between "
+                    "its members: a device share below 1 does not apply there")
+            from ballista_tpu_torch.engine import memory_model as MM
+
+            # process-wide, before any engine detects its budget
+            MM.set_device_share(self.config.device_share)
         if self.config.backend == "torch":
             from ballista_tpu_torch.engine.torch_engine import resolve_device
 
@@ -261,7 +278,8 @@ class ExecutorProcess:
         return self.config.advertise_host or "127.0.0.1"
 
     def metadata(self) -> pb.ExecutorMetadata:
-        num_devices, kind, mesh = _device_inventory(self.config.backend, self.config.device)
+        num_devices, kind, mesh = _device_inventory(self.config.backend, self.config.device,
+                                                    self.config.device_share)
         return pb.ExecutorMetadata(
             id=self.executor_id,
             host=self._advertised_host(),
@@ -644,7 +662,8 @@ def _host_metrics(executor) -> dict[str, float]:
     return out
 
 
-def _device_inventory(backend: str, device: Optional[str]) -> tuple[int, str, str]:
+def _device_inventory(backend: str, device: Optional[str],
+                      share: float = 1.0) -> tuple[int, str, str]:
     """(devices, kind, mesh shape) as registered: a torch executor reports
     its mesh's shard count (``parallel.mesh_shards``: one per visible card
     unless forced) and, on a card, the card's name
@@ -654,7 +673,9 @@ def _device_inventory(backend: str, device: Optional[str]) -> tuple[int, str, st
     ``parallel.mesh.mesh_shape``) tells the scheduler how many shards share
     a card, so that it splits the card's budget as the engine does; a mesh
     group's member counts every member's shards on its cards
-    (``MeshGroup.mesh_shape``). A host (numpy) executor reports no device."""
+    (``MeshGroup.mesh_shape``). An executor that plans for a ``share`` below
+    1 of its card adds it (``"1x1@0.5"``), so that the scheduler admits its
+    stages against that share. A host (numpy) executor reports no device."""
     if backend != "torch" or device is None:
         return (0, "cpu", "")
     import torch
@@ -666,5 +687,5 @@ def _device_inventory(backend: str, device: Optional[str]) -> tuple[int, str, st
     kind = torch.cuda.get_device_name(torch.device(device)) if device.startswith("cuda") \
         else "cpu"
     group = multihost.current_group()
-    shape = group.mesh_shape() if group is not None else mesh_shape(mesh)
+    shape = group.mesh_shape() if group is not None else mesh_shape(mesh, share)
     return (len(mesh), kind, shape)

@@ -35,17 +35,31 @@ def shards_per_card(devices: list) -> int:
     return max((devices.count(d) for d in set(devices)), default=1)
 
 
-def mesh_shape(devices: list) -> str:
+def mesh_shape(devices: list, share: float = 1.0) -> str:
     """The shape a torch executor registers for its mesh: ``"CxS"``, C
-    devices with S shards on each (``"1x4"``: four shards of one card)."""
-    return f"{len(set(devices))}x{shards_per_card(devices)}"
+    devices with S shards on each (``"1x4"``: four shards of one card),
+    and ``"@F"`` after it when the process plans for a share F below 1 of
+    each card (``"1x1@0.5"``: one of two executors on one card)."""
+    shape = f"{len(set(devices))}x{shards_per_card(devices)}"
+    return shape if share >= 1.0 else f"{shape}@{share:g}"
 
 
 def shards_per_card_of(shape: str) -> int:
     """S of a registered ``"CxS"`` mesh shape; 1 for any other (a host
     executor's empty shape)."""
-    cards, sep, per = shape.partition("x")
+    cards, sep, per = shape.partition("@")[0].partition("x")
     return int(per) if sep and cards.isdigit() and per.isdigit() and int(per) > 0 else 1
+
+
+def device_share_of(shape: str) -> float:
+    """F of a registered ``"CxS@F"`` mesh shape: the share of each card the
+    executor plans for; 1.0 without one, or for one outside (0, 1]."""
+    _shape, sep, share = shape.partition("@")
+    try:
+        f = float(share) if sep else 1.0
+    except ValueError:
+        return 1.0
+    return f if 0.0 < f <= 1.0 else 1.0
 
 # budget solver ceiling: a stage needing more exchange partitions than this
 # against its device-memory budget is mis-planned (paged join or rejection),

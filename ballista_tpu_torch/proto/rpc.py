@@ -30,6 +30,8 @@ SCHEDULER_METHODS: dict[str, tuple[Any, Any]] = {
     "ExecuteQuery": (pb.ExecuteQueryParams, pb.ExecuteQueryResult),
     "GetJobStatus": (pb.GetJobStatusParams, pb.GetJobStatusResult),
     "GetTrace": (pb.GetTraceParams, pb.GetTraceResult),
+    # a job's folded counters, JSON in GetTraceResult.trace (the port's own)
+    "GetJobMetrics": (pb.GetJobStatusParams, pb.GetTraceResult),
     "ReportTrace": (pb.ReportTraceParams, pb.ReportTraceResult),
     "ExecutorStopped": (pb.ExecutorStoppedParams, pb.ExecutorStoppedResult),
     "CancelJob": (pb.CancelJobParams, pb.CancelJobResult),

@@ -61,6 +61,9 @@ class ExecutorInfo:
     # mesh shards on each of its cards (the S of the registered "CxS" mesh
     # shape): the card's budget is split between them
     shards_per_card: int = 1
+    # the share of each card it plans for (the F of a registered "CxS@F"
+    # shape): two executors on one card register 0.5 each
+    device_share: float = 1.0
     # quarantine bookkeeping (scheduler-side health tracking)
     consecutive_failures: int = 0
     quarantined_until: float = 0.0
@@ -438,6 +441,13 @@ class InMemoryClusterState:
         with self._lock:
             alive = self.alive_executors()
         return max((e.shards_per_card for e in alive), default=1)
+
+    def min_device_share(self) -> float:
+        """The least share of a card any alive executor plans for: the
+        share of the card's budget the governor plans with."""
+        with self._lock:
+            alive = self.alive_executors()
+        return min((e.device_share for e in alive), default=1.0)
 
     def complete_mesh_groups(self) -> dict[str, list[ExecutorInfo]]:
         """Mesh groups whose EVERY member is alive, keyed by group id; members

@@ -513,6 +513,15 @@ class ExecutionStage:
             else:
                 self.stage_metrics[k] = self.stage_metrics.get(k, 0.0) + v
 
+    def note_bound(self, now: float) -> None:
+        """A task of this stage was handed to an executor: its wait since
+        the stage attempt started running (every input complete; a retried
+        partition counts from there too) is folded into the stage's
+        ``op.TaskWait.{time_s,count}``."""
+        if self.started_at:
+            self.merge_task_metrics({"op.TaskWait.time_s": max(0.0, now - self.started_at),
+                                     "op.TaskWait.count": 1.0})
+
     def note_duration(
         self, info: TaskInfo, now: float, pending_wait_s: float = 0.0
     ) -> None:
@@ -1022,6 +1031,7 @@ class ExecutionGraph:
             started_at=time.time(),
         )
         s.task_infos[partition] = t
+        s.note_bound(t.started_at)
         return TaskDescriptor(
             t.task_id, self.job_id, s.stage_id, s.attempt, partition, attempt, s.resolved_plan
         )
@@ -1047,6 +1057,7 @@ class ExecutionGraph:
                 started_at=time.time(),
             )
             s.task_infos[p] = t
+            s.note_bound(t.started_at)
             plan = s.resolved_plan
             assert plan is not None
             return TaskDescriptor(
@@ -1806,6 +1817,16 @@ class ExecutionGraph:
         self.status = CANCELLED
         self.end_time = time.time()
         self._trace_job_span()
+
+    def folded_metrics(self) -> dict[str, float]:
+        """The job's stage metrics folded over its stages, as a stage folds
+        its tasks' (sums; a ``*.max_bytes`` peak the largest)."""
+        out: dict[str, float] = {}
+        for s in self.stages.values():
+            for k, v in dict(s.stage_metrics).items():
+                out[k] = max(out.get(k, 0.0), v) if k.endswith(".max_bytes") \
+                    else out.get(k, 0.0) + v
+        return out
 
     def unpin_stages_on_executor(self, executor_id: str) -> int:
         """An ICI stage pinned to a now-QUARANTINED executor would starve: its

@@ -378,7 +378,7 @@ class SchedulerServer:
 
     # ---- RPC: executor lifecycle ------------------------------------------------------
     def register_executor(self, req: pb.RegisterExecutorParams, ctx) -> pb.RegisterExecutorResult:
-        from ballista_tpu_torch.parallel.mesh import shards_per_card_of
+        from ballista_tpu_torch.parallel.mesh import device_share_of, shards_per_card_of
 
         m = req.metadata
         self.cluster.register(
@@ -391,6 +391,7 @@ class SchedulerServer:
                 device_count=m.specification.num_devices,
                 device_kind=m.specification.device_kind,
                 shards_per_card=shards_per_card_of(m.specification.mesh_shape),
+                device_share=device_share_of(m.specification.mesh_shape),
             )
         )
         log.info("registered executor %s at %s:%s", m.id, m.host, m.port)
@@ -730,6 +731,7 @@ class SchedulerServer:
             n_devices = max(1, self.cluster.max_device_count())
             device_kinds = tuple(sorted(self.cluster.device_kinds()))
             shards_per_card = self.cluster.max_shards_per_card()
+            device_share = self.cluster.min_device_share()
             # the catalog-version signal, shared by the plan cache key AND
             # the cross-query exchange cache key (docs/serving.md)
             tdigest = table_defs_digest([
@@ -754,6 +756,7 @@ class SchedulerServer:
                     n_devices,
                     device_kinds,
                     shards_per_card,
+                    device_share,
                 )
                 entry = self.plan_cache.get(cache_key)
             logical = None
@@ -792,8 +795,9 @@ class SchedulerServer:
                 physical, memory_report = govern_with_config(
                     physical, config, n_devices,
                     detected_budget_bytes=budget_from_device_kinds(
-                        set(device_kinds), shards_per_card
+                        set(device_kinds), shards_per_card, device_share
                     ),
+                    shared=device_share < 1.0,
                 )
                 if memory_report is not None and memory_report.rejections():
                     from ballista_tpu_torch.analysis import errors_of as _errors_of
@@ -849,6 +853,8 @@ class SchedulerServer:
                 ),
             )
             graph.memory_report = memory_report
+            # the job's run counts from its acceptance (op.Job.run_s)
+            graph.queued_at = submitted_at or t0
             # fair-share accounting identity (docs/serving.md): tenant +
             # weight + slot quota ride the session settings onto the graph;
             # the TaskManager's weighted round-robin offer reads them
@@ -1110,6 +1116,9 @@ class SchedulerServer:
                 total_task_count=g.total_task_count(),
                 completed_task_count=g.completed_task_count(),
                 warnings=getattr(g, "warnings", []) or [],
+                queued_at_ms=g.queued_at * 1000.0,
+                started_at_ms=g.start_time * 1000.0,
+                ended_at_ms=(g.end_time or 0.0) * 1000.0,
             )
             if g.status == SUCCESSFUL:
                 status.result_schema = json.dumps(
@@ -1129,6 +1138,15 @@ class SchedulerServer:
                         )
                     )
         return pb.GetJobStatusResult(status=status)
+
+    def get_job_metrics(self, req: pb.GetJobStatusParams, ctx) -> pb.GetTraceResult:
+        """A job's counters as JSON (``ExecutionGraph.folded_metrics``: its
+        stages' task and scheduler metrics folded), ``{}`` for a job unknown
+        here; a remote client reads them into ``last_engine_metrics``."""
+        with self.tasks._lock:
+            g = self.tasks.get_job(req.job_id)
+            metrics = g.folded_metrics() if g is not None else {}
+        return pb.GetTraceResult(trace=json.dumps(metrics).encode())
 
     def get_trace(self, req: pb.GetTraceParams, ctx) -> pb.GetTraceResult:
         return pb.GetTraceResult(

@@ -39,6 +39,7 @@ import pyarrow.ipc as ipc
 import pyarrow.flight as flight
 
 from ballista_tpu_torch.errors import FetchFailed
+from ballista_tpu_torch.obs.tracing import Phase
 from ballista_tpu_torch.ops.batch import ColumnBatch
 from ballista_tpu_torch.shuffle.pool import GLOBAL_FLIGHT_POOL, flight_connection
 
@@ -719,6 +720,10 @@ class ShuffleStreamWriter:
         return w
 
     def append(self, batch: ColumnBatch) -> None:
+        with Phase("ballista.shuffle.write"):
+            self._append(batch)
+
+    def _append(self, batch: ColumnBatch) -> None:
         from ballista_tpu_torch.ops.kernels_np import hash_partition
 
         t0 = time.time()
@@ -777,6 +782,10 @@ class ShuffleStreamWriter:
         ``ShuffleWriteStats`` list as the one-shot writer. Uploads (when the
         object-store tier is on) are launched per file as it closes and
         joined at the end — overlapped, not tacked on after."""
+        with Phase("ballista.shuffle.write"):
+            return self._finish()
+
+    def _finish(self):
         from ballista_tpu_torch.shuffle.writer import (
             ShuffleWriteStats,
             WRITE_CONCURRENCY,

@@ -118,7 +118,7 @@ def write_shuffle_partitions(
     ``object_store_url`` is set, each finished file is ALSO uploaded so
     consumers survive producer loss without a stage re-run (reference:
     PartitionReaderEnum::ObjectStoreRemote, shuffle_reader.rs:340-363)."""
-    from ballista_tpu_torch.obs.tracing import ambient_span
+    from ballista_tpu_torch.obs.tracing import Phase, ambient_span
 
     # wire codes apply only to INTERNAL hash exchanges: pass-through stages
     # (partitioning None) include the job's RESULT stage, whose files are
@@ -126,7 +126,7 @@ def write_shuffle_partitions(
     # Arrow strings, not engine-private code columns
     dict_codes = dict_codes and plan.partitioning is not None
     t0 = time.time()
-    with ambient_span(
+    with Phase("ballista.shuffle.write"), ambient_span(
         "shuffle-write", "shuffle",
         {"stage": plan.stage_id, "input_partition": input_partition},
     ) as span:

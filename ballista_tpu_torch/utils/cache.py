@@ -11,7 +11,8 @@ Eviction accounting: ``evictions`` counts the entries dropped for weight and
 ``evicted_weight`` their summed weight (an invalidation or ``clear`` is no
 eviction). ``evict_for(weight)`` makes room for an entry before it is
 loaded, so a loader that allocates (a device copy) finds the memory freed
-first. With ``keep_weightless`` an entry that weighs nothing is never
+first; ``evict(weight, where)`` frees weight among the keys ``where``
+accepts. Both go through one loop and one rule. With ``keep_weightless`` an entry that weighs nothing is never
 evicted for weight (dropping it frees nothing): its owner invalidates it.
 """
 from __future__ import annotations
@@ -117,9 +118,14 @@ class LoadingCache(Generic[K, V]):
         entry of ``weight`` fits under the capacity beside what stays;
         returns the weight evicted."""
         with self._mu:
-            before = self.evicted_weight
-            self._evict(self._pinned_weight() - weight)
-            return self.evicted_weight - before
+            return self._evict(self._total - self._pinned_weight() + weight - self.capacity)
+
+    def evict(self, weight: float, where: Optional[Callable[[K], bool]] = None) -> float:
+        """Evicts unpinned entries whose keys ``where`` accepts (all when
+        None), least recently used first, until ``weight`` has gone or none
+        is left; returns the weight evicted."""
+        with self._mu:
+            return self._evict(weight, where=where)
 
     def clear(self) -> None:
         with self._mu:
@@ -161,25 +167,30 @@ class LoadingCache(Generic[K, V]):
                 "(%.1f MB); unpinned entries still get the full budget",
                 pinned_w / 1e6, self.capacity / 1e6,
             )
-        self._evict(pinned_w, keep=key)
+        self._evict(self._total - pinned_w - self.capacity, keep=key)
 
     @concurrency.guarded_by("_mu")
     def _pinned_weight(self) -> float:
         return sum(self._weights.get(k, 0) for k in self._pinned) if self._pinned else 0
 
     @concurrency.guarded_by("_mu")
-    def _evict(self, outside: float, keep=None) -> None:
+    def _evict(self, weight: float, keep=None, where=None) -> float:
         """Evicts least recently used entries (never a pinned one, nor
-        ``keep``) until the total less ``outside`` fits the capacity."""
-        if self._total - outside <= self.capacity:
-            return
-        evictable = [k for k in self._entries if k not in self._pinned and k != keep
-                     and not (self.keep_weightless and self._weights[k] == 0)]
-        while self._total - outside > self.capacity and evictable:
-            k = evictable.pop(0)
+        ``keep``, nor one ``where`` refuses) until ``weight`` has gone;
+        returns the weight evicted."""
+        gone = 0.0
+        if weight <= 0:
+            return gone
+        for k in [k for k in self._entries if k not in self._pinned and k != keep
+                  and not (self.keep_weightless and self._weights[k] == 0)
+                  and (where is None or where(k))]:
+            if gone >= weight:
+                break
+            gone += self._weights[k]
             self.evicted_weight += self._weights[k]
             self._drop(k)
             self.evictions += 1
+        return gone
 
     @concurrency.guarded_by("_mu")
     def _drop(self, key: K, notify: bool = True) -> None:
